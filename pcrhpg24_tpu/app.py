@@ -38,8 +38,6 @@ def build_methods(renderer: Renderer, scene_path: str):
         Runtime.add_method(HuffmanTpu(renderer, data))
         Runtime.add_method(HuffmanTpuHqs(renderer, data))
     elif scene_path.endswith(".huffman"):
-        import os
-
         from .engine.resource import HuffmanLasData
         from .render.methods.huffman_hqs import HuffmanHQS
         from .render.methods.huffman_mem_iter import HuffmanMemIter
@@ -47,22 +45,14 @@ def build_methods(renderer: Renderer, scene_path: str):
         data = HuffmanLasData.create(scene_path)
         Runtime.add_method(HuffmanMemIter(renderer, data))
         Runtime.add_method(HuffmanHQS(renderer, data))
-        # reference scenes get the fast Pallas path through LOAD-TIME
+        # reference scenes also get the flagship path through LOAD-TIME
         # conversion (fused C++ transcode on the loader pool, no .tpc
         # on disk); decoded geometry is bit-identical to the XLA path
-        try:
-            from .engine.native_resource import HuffmanNativeData
-            from .render.methods.huffman_tpu import HuffmanTpu
+        from .engine.native_resource import HuffmanNativeData
+        from .render.methods.huffman_tpu import HuffmanTpu
 
-            Runtime.add_method(
-                HuffmanTpu(renderer, HuffmanNativeData.create(scene_path)))
-        except Exception as e:  # the fast path is an optimization
-            import sys as _sys
-            import traceback
-
-            print(f"WARNING: load-time conversion failed ({e}); "
-                  "falling back to the XLA .huffman path", file=_sys.stderr)
-            traceback.print_exc(file=_sys.stderr)
+        Runtime.add_method(
+            HuffmanTpu(renderer, HuffmanNativeData.create(scene_path)))
     elif (scene_path.endswith(".laz") or "," in scene_path
           or "*" in scene_path):
         # multi-file / compressed ingestion (LasLoaderSparse equivalent:
@@ -144,6 +134,9 @@ def main(argv=None):
                     help="interactive localhost viewer instead of offscreen frames")
     args = ap.parse_args(argv)
 
+    from .utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     Debug.lod = args.lod
     Debug.colorize_chunks = args.colorize_chunks
     Debug.colorize_overdraw = args.colorize_overdraw
@@ -180,8 +173,6 @@ def main(argv=None):
 
     print(f"rendering {args.frames} frame(s) with {method.name}")
 
-    if args.depth:
-        renderer.capture_depth = True
     method.update(renderer)
     if hasattr(method, "las"):
         method.las.wait_loaded(renderer)

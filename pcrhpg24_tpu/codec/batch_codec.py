@@ -9,7 +9,7 @@ dictionary (preprocess.cpp:757-776), and the 32 chains of each warp are
 word-interleaved in GPU consumption order (preprocess.cpp:540-587).
 
 This module is the NumPy-vectorized implementation used by the
-preprocessor and by tests; the JAX/Pallas decoders mirror its semantics.
+preprocessor and by tests; the JAX decoders mirror its semantics.
 """
 
 from __future__ import annotations

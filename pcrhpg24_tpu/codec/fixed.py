@@ -1,11 +1,11 @@
-"""TPU-native fixed-width geometry codec ("fbatch", `.tpc` v2).
+"""Native fixed-width geometry codec ("fbatch", `.tpc` v2).
 
 Round-2 successor of the bucket-Huffman tbatch codec (codec/native.py),
-trading ~13% compression (44.8 vs 39.7 bits/pt on the bench terrain,
-experiments/r2_codec_ratio.py) for a decode loop with NO data-dependent
-bit lengths: every chain stores its three per-component zigzag deltas at
-a fixed per-chain width (the max bit-length over the chain's 64 deltas),
-so the Pallas kernel needs no canonical-code compare ladder, no
+trading ~13% compression (44.8 vs 39.7 bits/pt on the bench terrain)
+for a decode loop with NO data-dependent bit lengths: every chain
+stores its three per-component zigzag deltas at a fixed per-chain width
+(the max bit-length over the chain's 64 deltas), so the decoder
+(render/decode_fixed_triton.py) needs no canonical-code compare ladder, no
 bucket-LUT gather, and only ONE refill round per point instead of six
 (reference decode equivalent: modules/huffman_mem_iter_cuda/
 render.cu:428-466; its per-symbol table decode becomes a fixed-shift
@@ -16,7 +16,7 @@ Per-chain layout (width w_x + w_y + w_z = W <= 96 bits per point):
   point i occupies bits [i*W, (i+1)*W) of the chain's bitstream,
   components in x,y,z order, MSB-first within each 32-bit word.
 
-Group interleave (the TPU analogue of the reference's warp interleave,
+Group interleave (the analogue of the reference's warp interleave,
 preprocess.cpp:540-587): the 128 chains of a group share one u32 word
 stream, ordered by decode-consumption rounds.  Round i (= point i) takes
 for every lane, in lane order, the lane's words
@@ -25,12 +25,12 @@ whose bits point i reads, so padded tails cost nothing.
 
 All 8 group streams share UNIFORM round boundaries: round i of every
 group starts at word round_ptrs[i] (each group's round is zero-padded to
-the widest group's count, +3.8% size on the bench terrain,
-experiments/r2_codec_ratio.py).  This lets the kernel load refill
-windows as whole (8, 128) tiles at one scalar base — 4 aligned tile
-loads per point instead of 8 groups x 4 per-row loads.
+the widest group's count, +3.8% size on the bench terrain).  So one
+pointer per round locates every lane's words in every group: the
+decoder needs no per-group stream cursor.
 
-Decode protocol (must match the Pallas kernel bit-for-bit):
+Decode protocol (the device decoders, render/decode_fixed_triton.py and
+native_decode_xla.decode_fixed_xla, match it bit for bit):
   state: window w0..w3 (u32), bp in [0,32) bit offset into w0,
          ve = valid words in window.
   per point: refill (take count_i = ceil((i+1)W/32)-ceil(iW/32) words
@@ -184,7 +184,7 @@ def _ramp(c: np.ndarray) -> np.ndarray:
 
 
 def decode_fixed_group(stream, widths, round_ptrs, num_points=P):
-    """NumPy mirror of the Pallas fbatch group decoder.
+    """NumPy mirror of the fbatch group decoder (decode_fixed).
 
     stream: (nwords,) u32; widths: (128, 3); round_ptrs: (P,) uniform
     round bases.  Returns (128, num_points, 3) i32 deltas.  Implements
@@ -262,3 +262,31 @@ def decode_fixed_batch(fb: FixedBatch) -> np.ndarray:
     return deltas_to_coords(
         deltas.reshape(1024, P * 3), fb.start_values.reshape(-1)
     )
+
+
+def pack_fixed_batches(batches, maxt: int | None = None):
+    """[FixedBatch] -> dict of per-batch device arrays (NumPy).
+
+    streams[b, t, g, lane] holds word t*128 + lane of group g's stream.
+    """
+    B = len(batches)
+    if maxt is None:
+        nw = max(fb.streams.shape[1] for fb in batches)
+        # +4 tiles of zero pad: refills read up to 2 words past a round
+        maxt = (nw + GROUP - 1) // GROUP + 4
+    widths = np.zeros((B, 3, NGROUPS, GROUP), np.int32)
+    streams = np.zeros((B, maxt, NGROUPS, GROUP), np.uint32)
+    ptrs = np.zeros((B, 1, P), np.int32)
+    starts = np.zeros((B, 3, NGROUPS, GROUP), np.int32)
+    for i, fb in enumerate(batches):
+        wv = fb.widths.reshape(NGROUPS, GROUP, 3).astype(np.int32)
+        widths[i] = np.transpose(wv, (2, 0, 1))
+        nw = fb.streams.shape[1]
+        nt = (nw + GROUP - 1) // GROUP
+        st = np.zeros((NGROUPS, nt * GROUP), np.uint32)
+        st[:, :nw] = fb.streams
+        streams[i, :nt] = st.reshape(NGROUPS, nt, GROUP).transpose(1, 0, 2)
+        ptrs[i, 0] = fb.round_ptrs
+        sv = fb.start_values.reshape(NGROUPS, GROUP, 3)
+        starts[i] = np.transpose(sv, (2, 0, 1))
+    return dict(widths=widths, streams=streams, ptrs=ptrs, starts=starts)

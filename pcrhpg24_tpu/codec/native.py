@@ -1,27 +1,25 @@
-"""TPU-native geometry stream codec ("tbatch").
+"""Native geometry stream codec ("tbatch", `.tpc` v1).
 
-A from-scratch re-design of the reference's per-batch compression for
-TPU decode.  Same information content (per-chain delta streams of
-Morton-sorted 65 536-point batches, reference: src/preprocess.cpp), but
-the code construction is chosen so the hot decode loop needs *no*
-4096-entry table gather (TPUs have no fast random gather — see
-experiments/NOTES.md):
+A from-scratch re-design of the reference's per-batch compression.
+Same information content (per-chain delta streams of Morton-sorted
+65 536-point batches, reference: src/preprocess.cpp), but the code
+construction is chosen so the hot decode loop needs *no* 4096-entry
+table gather:
 
 * symbols are zigzag **bit-length buckets** (0..32) of the interleaved
   deltas; a symbol is followed inline by `bucket-1` raw extra bits.
   Decoding a bucket only needs the canonical-code compare ladder
   (12 scalar limits) plus a 33-entry arithmetic bit-plane LUT — all
-  vectorizable on the VPU.
+  vectorizable.
 * codes are canonical, depth-limited to 12 bits (Kraft repair).
-* the 1024 chains are grouped as 8 groups x 128 lanes — one (8,128)
-  VREG row per group.  Each group has its own word stream, interleaved
-  in exact decoder-consumption order (the TPU analogue of the
-  reference's warp interleave, preprocess.cpp:540-587): per decode
-  round, refilling lanes take consecutive words in lane order, so the
-  kernel reads a dense 128-word window and distributes it with a lane
-  shuffle (`tpu.dynamic_gather`) — no per-lane address divergence.
+* the 1024 chains are grouped as 8 groups x 128 lanes.  Each group has
+  its own word stream, interleaved in exact decoder-consumption order
+  (the analogue of the reference's warp interleave,
+  preprocess.cpp:540-587): per decode round, refilling lanes take
+  consecutive words in lane order, so a decoder reads a dense 128-word
+  window — no per-lane address divergence.
 
-The decode protocol (must match the Pallas kernel bit-for-bit):
+The decode protocol (render/native_decode_xla.decode_native_xla):
   state: cur, nxt (u32 words), bitpos in [0,32) consumed bits of cur.
   initial: cur = stream[lane], nxt = stream[128+lane], already = 256.
   per symbol:
@@ -53,6 +51,7 @@ U32 = np.uint32
 I64 = np.int64
 SYMS_PER_LANE = POINTS_PER_THREAD * 3
 GROUP = TPU_GROUP_SIZE
+NGROUPS = TPU_GROUPS_PER_BATCH
 MAXL = TPU_MAX_CODE_LEN
 
 
@@ -97,7 +96,7 @@ def limit_lengths(lengths: np.ndarray, counts: np.ndarray, max_len: int) -> np.n
 
 @dataclass
 class CanonicalCode:
-    """Canonical bucket code: description small enough to live in SMEM."""
+    """Canonical bucket code: a description of a few dozen integers."""
 
     length_counts: np.ndarray  # (MAXL+1,) number of symbols per length
     symbols: np.ndarray  # symbols sorted by (length, symbol)
@@ -295,7 +294,7 @@ def _interleave_group(lane_words, lane_bits, buckets, enc_table):
 
 
 def decode_native_group(stream, code: CanonicalCode, num_symbols=SYMS_PER_LANE):
-    """NumPy mirror of the Pallas group decoder.  Returns (G, num_symbols) i64 deltas."""
+    """NumPy mirror of the device group decoder (decode_native_xla).  Returns (G, num_symbols) i64 deltas."""
     lj_limit, base_idx, first_code = code.decode_tables()
     lut = code.symbols  # sym_idx -> bucket
 
@@ -357,3 +356,87 @@ def decode_native_batch(nb: NativeBatch) -> np.ndarray:
         d = decode_native_group(nb.streams[g], nb.code)
         deltas[g * GROUP : (g + 1) * GROUP] = d.astype(np.int32)
     return deltas_to_coords(deltas, nb.start_values.reshape(-1))
+
+
+def pack_native_batches(batches, maxw: int | None = None):
+    """[NativeBatch] -> dict of per-batch device arrays (NumPy)."""
+    B = len(batches)
+    if maxw is None:
+        maxw = max(max(len(s) for s in nb.streams) for nb in batches)
+        maxw = ((maxw + GROUP - 1) // GROUP + 1) * GROUP + GROUP
+    lj = np.zeros((B, 1, 32), np.int32)
+    streams = np.zeros((B, NGROUPS, maxw), np.uint32)
+    ptrs = np.zeros((B, 384, NGROUPS), np.int32)
+    dD = np.zeros((B, 1, 128), np.int32)
+    lut = np.zeros((B, 1, 128), np.int32)
+    starts = np.zeros((B, 3, NGROUPS, GROUP), np.int32)
+
+    for i, nb in enumerate(batches):
+        lj_limit, base_idx, first_code = nb.code.decode_tables()
+        lj[i, 0, :MAXL] = lj_limit
+        dDv = base_idx - first_code  # dD[L] for L = 1..12 at index L-1
+        lj[i, 0, 28] = dDv[0]
+        lj[i, 0, 16 : 16 + MAXL - 1] = np.diff(dDv)
+        dD[i, 0, 1 : MAXL + 1] = dDv
+        lut[i, 0, : len(nb.code.symbols)] = nb.code.symbols
+        for g in range(NGROUPS):
+            s = nb.streams[g]
+            streams[i, g, : len(s)] = s
+        ptrs[i] = nb.round_ptrs if nb.round_ptrs is not None else compute_round_ptrs(nb)
+        sv = nb.start_values.reshape(NGROUPS, GROUP, 3)
+        starts[i] = np.transpose(sv, (2, 0, 1))
+    return dict(lj=lj, streams=streams, ptrs=ptrs, dD=dD, lut=lut, starts=starts)
+
+
+def compute_round_ptrs(nb) -> np.ndarray:
+    """(384, 8) i32: stream base pointer per refill round per group.
+
+    Replays the encoder's protocol simulation (native.py
+    _interleave_group) to recover cumulative word consumption.
+    """
+    ptrs = np.zeros((384, NGROUPS), np.int32)
+    for g in range(NGROUPS):
+        stream = nb.streams[g]
+        # replay: we need per-round counts; recover them by decoding the
+        # consume schedule from the stream itself via the numpy decoder
+        ptrs[:, g] = _round_ptrs_from_stream(stream, nb.code)
+    return ptrs
+
+
+def _round_ptrs_from_stream(stream, code) -> np.ndarray:
+    """Decode the group stream once on the host to extract the per-round
+    window pointers (cumulative consumed words)."""
+    lj_limit, base_idx, first_code = code.decode_tables()
+    lut = code.symbols
+    s = np.concatenate([stream.astype(np.uint64), np.zeros(2 * GROUP, np.uint64)])
+    cur = s[np.arange(GROUP)].copy()
+    nxt = s[GROUP + np.arange(GROUP)].copy()
+    bitpos = np.zeros(GROUP, np.int64)
+    already = 2 * GROUP
+    out = np.zeros(2 * SYMS_PER_LANE, np.int32)
+
+    def peek(n):
+        w64 = (cur << np.uint64(32)) | nxt
+        sh = (64 - bitpos - n).astype(np.uint64)
+        return (w64 >> sh) & ((np.uint64(1) << n.astype(np.uint64)) - np.uint64(1))
+
+    t = 0
+    for i in range(SYMS_PER_LANE):
+        win = peek(np.full(GROUP, MAXL, np.int64)).astype(np.int64)
+        L = 1 + np.sum(win[:, None] >= lj_limit[None, :-1], axis=1)
+        sym_idx = base_idx[L - 1] + (win >> (MAXL - L)) - first_code[L - 1]
+        bucket = lut[sym_idx]
+        for phase, consumed in ((0, L), (1, np.maximum(bucket - 1, 0))):
+            bitpos += consumed
+            need = bitpos >= 32
+            bitpos = np.where(need, bitpos - 32, bitpos)
+            out[t] = already
+            rank = np.cumsum(need) - need
+            w = s[np.minimum(already + rank, len(s) - 1)]
+            cur[:] = np.where(need, nxt, cur)
+            nxt[:] = np.where(need, w, nxt)
+            already += int(need.sum())
+            t += 1
+    # the extras' *values* are never needed for pointer recovery — only
+    # their bit counts, which `consumed` already accounts for.
+    return out

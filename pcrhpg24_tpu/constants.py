@@ -11,7 +11,7 @@ POINTS_PER_THREAD = 64
 CLUSTERS_PER_THREAD = 1
 # Chains per batch (threads per workgroup in the reference).
 WORKGROUP_SIZE = 1024
-# Points per batch: one batch == one CUDA block == one Pallas grid step.
+# Points per batch: one batch == one CUDA block in the reference.
 POINTS_PER_WORKGROUP = WORKGROUP_SIZE * POINTS_PER_THREAD  # 65 536
 # Points per preprocessing/IO chunk (100 batches).
 MAX_POINTS_PER_BATCH = 100 * POINTS_PER_WORKGROUP  # 6 553 600
@@ -24,8 +24,8 @@ WARPS_PER_BATCH = WORKGROUP_SIZE // WARP_SIZE  # 32
 # Color compression: 0 = raw RGBA8, 1 = BC1, 7 = BC7 mode 6.
 COLOR_COMPRESSION = 1
 
-# ---- TPU-native ("tbatch") format constants ----
-# Lane-group width of the TPU stream interleave: one VREG row of lanes.
+# ---- `.tpc` native format constants (on-disk layout; names kept) ----
+# Lane-group width of the native stream interleave.
 TPU_GROUP_SIZE = 128
 TPU_GROUPS_PER_BATCH = WORKGROUP_SIZE // TPU_GROUP_SIZE  # 8
 # Max symbol-code length of the canonical bucket-Huffman code.

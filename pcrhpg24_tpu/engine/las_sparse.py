@@ -3,7 +3,7 @@
 The reference's LasLoaderSparse (modules/compute/LasLoaderSparse.cpp,
 712 LoC) accepts multiple drag-and-dropped LAS/LAZ files, loads them
 TaskPool-parallel through laszip, and appends them into GL sparse
-buffers reserved for a billion points.  The TPU mapping: one flat
+buffers reserved for a billion points.  Here: one flat
 device SoA sized for the concatenated scene (HBM is allocated up
 front like the reference's sparse reservation), a background loader
 thread that walks the files in chunks (LAZ decoding included —

@@ -1,9 +1,10 @@
-"""Streaming `.tpc` (TPU-native) scene resource.
+"""Streaming `.tpc` (native format) scene resource.
 
 Same state machine and streaming scheme as HuffmanLasData (see
-resource.py), but the device layout feeds the Pallas tbatch decoder:
-per-batch dense rows (streams padded to the scene's max group width,
-canonical-code tables, round pointers, start values, BC1 colors).
+resource.py), but the device layout feeds the native decoders
+(render/native_decode_xla.py): per-batch dense rows (streams padded to
+the scene's max group width, code tables, round pointers, start values,
+colors).
 """
 
 from __future__ import annotations
@@ -94,14 +95,6 @@ class NativeLasData(Resource):
                 bbox_max=jnp.zeros((B, 3), jnp.float32),
                 anchor=jnp.zeros((B, 3), jnp.int32),
             )
-            if self.color_fmt == "bc1":
-                # BC1 blocks in the project kernel's layout (block, word,
-                # g, lane) — render/pallas_project.py; the fused
-                # project+BC1 kernel only exists for BC1 (the reference's
-                # default COLOR_COMPRESSION; other formats decode color
-                # on the XLA projection path)
-                self.dev["colors_k"] = jnp.zeros((B, 4, 2, G, 128),
-                                                 jnp.uint32)
         else:
             self.dev = dict(
                 lj=jnp.zeros((B, 1, 32), jnp.int32),
@@ -142,11 +135,11 @@ class NativeLasData(Resource):
 
     def process(self, renderer=None, max_tasks: int = 8):
         if self.version == 2:
-            from ..render.pallas_decode_fixed import pack_fixed_batches as _pack
+            from ..codec.fixed import pack_fixed_batches as _pack
             keys = ("widths", "streams", "ptrs", "starts")
             packed_kw = dict(maxt=self.maxt)
         else:
-            from ..render.pallas_decode import pack_native_batches as _pack
+            from ..codec.native import pack_native_batches as _pack
             keys = ("lj", "streams", "ptrs", "dD", "lut", "starts")
             packed_kw = dict(maxw=self.maxw)
 
@@ -165,13 +158,6 @@ class NativeLasData(Resource):
                 d[key] = _upload_rows(d[key], start, jnp.asarray(packed[key]))
             colors = np.stack([c for _nb, c in items]).astype(np.uint32)
             d["colors"] = _upload_rows(d["colors"], start, jnp.asarray(colors))
-            if self.version == 2 and self.color_fmt == "bc1":
-                from ..render.pallas_project import colors_kernel_layout
-
-                d["colors_k"] = _upload_rows(
-                    d["colors_k"], start,
-                    jnp.asarray(colors_kernel_layout(colors)),
-                )
             # component-wise chain-start minimum: identical for the same
             # batch across formats, so the XLA .huffman path and this one
             # produce bit-identical projections (tests/fbcompare)
@@ -212,7 +198,7 @@ class NativeLasData(Resource):
 
 
 class HuffmanNativeData(NativeLasData):
-    """Reference `.huffman` scene on the flagship Pallas path, with the
+    """Reference `.huffman` scene on the flagship path, with the
     format conversion at LOAD TIME — no `.tpc` sidecar on disk.
 
     The loader thread reads reference batch blobs and a worker pool runs

@@ -4,7 +4,7 @@ Role-equivalent of the reference's GLFW/ImGui Renderer (reference:
 src/Renderer.cpp:109-766) minus the interactive window: owns the camera
 + orbit controls, drives the update/render loop, aggregates frame
 timings, and exports frames.  A windowed viewer is intentionally out of
-scope for a TPU deployment; images are rendered offscreen and saved
+scope for a headless accelerator host; images are rendered offscreen and saved
 (the reference itself supports that workflow via its screenshot and
 depth-dump paths, Renderer.cpp:94-107, huffman_mem_iter_cuda.h:200-220).
 """
@@ -42,11 +42,6 @@ class Renderer:
         self.frame_count = 0
         self.last_image = None
         self.last_fb = None
-        # when False, color-only methods may skip materializing the dense
-        # depth plane (render_frame_native need_depth) — the image is
-        # identical; set True before rendering if save_depth_exr or a
-        # depth-consuming pass will read last_fb[0].
-        self.capture_depth = False
 
     def set_size(self, width: int, height: int) -> None:
         self.width = width
@@ -108,10 +103,7 @@ class Renderer:
             raise RuntimeError("no framebuffer available")
         fb_d, _ = self.last_fb
         if fb_d is None:
-            raise RuntimeError(
-                "depth plane not captured; set renderer.capture_depth = True "
-                "before rendering the frame"
-            )
+            raise RuntimeError("the last frame has no depth plane")
         d = np.asarray(fb_d).view(np.float32).reshape(self.height, self.width)
         d = np.where(
             np.asarray(fb_d).reshape(self.height, self.width) == 0xFFFFFFFF, 0.0, d

@@ -7,9 +7,10 @@ buffers, a detached loader thread that reads batch blobs from disk, and
 a per-frame `process()` that uploads pending batches into device-buffer
 slices via append cursors.
 
-TPU adaptation: "cuMemAlloc + cuMemcpyHtoD slice" becomes preallocated
+Here "cuMemAlloc + cuMemcpyHtoD slice" becomes preallocated
 jax device arrays updated in place with donated-buffer
-`lax.dynamic_update_slice` jits, so streaming does not reallocate HBM.
+`lax.dynamic_update_slice` jits, so streaming does not reallocate
+device memory.
 """
 
 from __future__ import annotations

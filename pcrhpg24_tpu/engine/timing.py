@@ -1,8 +1,8 @@
 """Per-phase frame timing with min/avg/max aggregation.
 
 Role-equivalent of GLTimerQueries (reference: src/GLTimerQueries.cpp:6-153):
-label start/end pairs aggregated into min/avg/max stats.  On TPU the
-"GPU timestamp" is approximated by blocking on the phase's output
+label start/end pairs aggregated into min/avg/max stats.  The
+GPU timestamp is approximated by blocking on the phase's output
 (`jax.block_until_ready`), which the caller does inside the timed span
 when device-accurate numbers are wanted.
 """

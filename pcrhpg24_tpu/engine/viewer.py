@@ -1,7 +1,7 @@
 """Localhost interactive viewer over the offscreen render loop.
 
 The reference is an interactive GLFW/ImGui application
-(src/Renderer.cpp:239-766).  A TPU deployment has no display; the
+(src/Renderer.cpp:239-766).  A headless accelerator host has no display; the
 interactive capability is provided as a tiny HTTP viewer instead: a
 single-page canvas app that drag-orbits the camera (the OrbitControls
 yaw/pitch/radius model, include/OrbitControls.h) and fetches freshly

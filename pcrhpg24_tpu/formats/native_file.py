@@ -1,7 +1,7 @@
-"""`.tpc` — the TPU-native scene file format.
+"""`.tpc` — the native scene file format.
 
 Same role as the reference's `.huffman` container (include/BatchDumpData.h)
-but carrying TPU-native streams.  Two on-disk versions:
+but carrying the native group-interleaved streams.  Two on-disk versions:
 
 v1 ('TPC1', codec/native.py bucket-Huffman tbatch):
   file  = magic 'TPC1' | i64 num_points | i64 num_batches | i64 max_group_words
@@ -246,7 +246,7 @@ def decode_tpc_batch_coords(batch) -> np.ndarray:
 def transcode_huffman_to_tpc(huffman_path: str, tpc_path: str, verbose=True,
                              codec: str = "fixed", workers: int | None = None):
     """Reference `.huffman` -> `.tpc`: decode each batch with the CPU
-    codec and re-encode in the TPU-native layout (decoded coordinates
+    codec and re-encode in the native layout (decoded coordinates
     are bit-identical; colors are passed through unchanged).
 
     Batches are independent, so the transcode runs on a thread pool

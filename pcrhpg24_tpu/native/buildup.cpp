@@ -7,7 +7,7 @@
 // counting-sort partition, a multithreaded batch pipeline and
 // morton-ordered ingestion; this is the same experiment as an
 // independent implementation (the strategies are the subject, the
-// octree is the apparatus).  Off the TPU critical path — a host-side
+// octree is the apparatus).  Off the render path — a host-side
 // engineering bench, like upstream.
 //
 // Exported (ctypes):

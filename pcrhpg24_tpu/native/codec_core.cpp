@@ -5,7 +5,7 @@
 // Huffman packers in include/huffman.h:242-300) — re-implemented for the
 // two stream layouts of this framework:
 //   * the reference-compatible 32-lane warp interleave (phantom-exact),
-//   * the TPU-native 128-lane group interleave with round pointers.
+//   * the native 128-lane group interleave with round pointers.
 // The Python/NumPy implementations in pcrhpg24_tpu/codec/ remain the
 // specification; this library must produce byte-identical streams
 // (asserted by tests/test_native_cpp.py).
@@ -62,7 +62,7 @@ inline int bitlen_u64(uint64_t z) {
 extern "C" {
 
 // ---------------------------------------------------------------------------
-// TPU-native (tbatch) encoder
+// Native (tbatch) encoder
 // ---------------------------------------------------------------------------
 // deltas:        1024*192 int32 (lane-major interleaved x y z)
 // bucket_codes:  33 uint32 canonical codes (index = bucket)
@@ -313,7 +313,7 @@ int decode_ref_batch(const uint32_t* encoding, int64_t e_len,
 extern "C" {
 
 // ---------------------------------------------------------------------------
-// TPU-native fixed-width (fbatch, .tpc v2) encoder — codec/fixed.py mirror
+// Native fixed-width (fbatch, .tpc v2) encoder — codec/fixed.py mirror
 // ---------------------------------------------------------------------------
 // deltas:      1024*192 int32 (lane-major interleaved x y z)
 // out_widths:  1024*3 uint8 per-chain component bit widths
@@ -400,11 +400,11 @@ extern "C" {
 // Fused reference-batch -> fbatch transcode (the load-time fast path)
 // ---------------------------------------------------------------------------
 // Decodes one reference `.huffman` batch, computes the integer bbox, and
-// re-encodes in the fixed-width TPU layout, all in one call — one
+// re-encodes in the fixed-width native layout, all in one call — one
 // thread-pool task per batch at load time, no intermediate NumPy passes
 // (reference ingest analogue: modules/compute/HuffmanLasLoader.cpp:176-299
-// uploads its format directly; the TPU path re-lays the bits out for the
-// Pallas decoder's uniform refill rounds instead).
+// uploads its format directly; here the bits are re-laid out for the
+// fbatch decoder's uniform refill rounds instead).
 // start_values: 1024*3 int32; out_bbox: 6 int32 (min xyz, max xyz).
 int transcode_ref_batch(const uint32_t* encoding, int64_t e_len,
                         const int32_t* cluster, const int32_t* separate,

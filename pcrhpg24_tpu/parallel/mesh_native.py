@@ -1,125 +1,86 @@
-"""Multi-chip FLAGSHIP rendering: dp-sharded fbatch frames over a mesh.
+"""Multi-device FLAGSHIP rendering: dp-sharded fbatch frames over a mesh.
 
 The reference is single-GPU; its flagship kernel launch
 (modules/huffman_mem_iter_cuda/huffman_mem_iter_cuda.h:192-195) maps to
-data-parallel batches on a TPU mesh.  Unlike the reference-format path
-(parallel/mesh.py, flat byte streams that need host re-splitting), the
-`.tpc` device layout is already per-batch rows, so sharding is just
-`PartitionSpec("dp")` on axis 0 of every array:
+data-parallel batches over a mesh of devices.  Unlike the reference-
+format path (parallel/mesh.py, flat byte streams that need host
+re-splitting), the `.tpc` device layout is already per-batch rows, so
+sharding is just `PartitionSpec("dp")` on axis 0 of every array:
 
-* each `dp` device decodes (Pallas on TPU, XLA elsewhere), projects
-  with the batch-relative f64-folded translations, run-collapses,
-  sorts, and merges ITS batches into a full local framebuffer with
-  exact u64 (depth<<32|payload) semantics — payloads are BC1 colors,
-  identical from any shard, so winners are device-count-invariant;
+* each `dp` device decodes, projects with the batch-relative
+  f64-folded translations, run-collapses, and min-merges ITS batches
+  into a full local framebuffer with exact u64 (depth<<32|payload)
+  semantics — payloads are BC1 colors, identical from any shard, so
+  winners are device-count-invariant;
 * local planes combine with a lexicographic (depth, payload) min
-  across `dp` — two `pmin` collectives over ICI; exact because u64-min
-  is associative over any partition of the entries;
+  across `dp` — two `pmin` collectives; exact because u64-min is
+  associative over any partition of the entries;
 * the `sp` axis shards the final unswizzle+resolve by framebuffer rows.
 
-HQS (reference: modules/huffman_hqs/) shards the same way: the prepass
-min-depth plane pmin-combines across dp, the tolerance-gated
-(r,g,b,count) sums psum-combine (sums are associative over any
-partition), and the divide resolve runs on sp row slices.
+HQS (reference: modules/huffman_hqs/) shards the same way: the min-depth
+plane pmin-combines across dp, the tolerance-gated (r,g,b,count) sums
+psum-combine (sums are associative over any partition), and the divide
+resolve runs on sp row slices.
 """
 
 from __future__ import annotations
+
+import math
 
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..constants import POINTS_PER_THREAD
-from ..render.camera import frame_setup_device
 from ..render.raster import (
     EMPTY,
-    sorted_resolve_u64_min_parts,
+    hqs_accumulate,
+    merge_u64_min,
+    resolve,
+    resolve_hqs,
     swizzle_dims,
     unswizzle_plane,
 )
 
-BACKGROUND = jnp.uint32(0x00443322)
-
-
-def _sort_shard_rows(pid, dep, pay, num_keys):
-    """Sort one shard's flat stream as row-parallel segments.
-
-    Caps the row count so each sorted row spans >= one TILE of entries
-    (the merge kernel's window granularity).  Guards the invariant the
-    halving loop relies on: the stream length must be a TILE multiple
-    (all callers produce 65536-point batch multiples), and srows never
-    reaches 0.
-    """
-    from ..render.methods.huffman_tpu import SORT_ROWS
-    from ..render.pallas_merge import TILE
-
-    assert pid.shape[0] % TILE == 0, pid.shape
-    srows = max(1, min(SORT_ROWS, pid.shape[0] // TILE))
-    while pid.shape[0] % (srows * TILE):
-        srows //= 2
-    n = pid.shape[0] // srows
-    return jax.lax.sort(
-        [pid.reshape(srows, n).astype(jnp.uint32),
-         dep.reshape(srows, n), pay.reshape(srows, n)],
-        num_keys=num_keys, is_stable=False, dimension=1,
-    )
-
 # dev-dict arrays sharded over dp (axis 0 = batch)
 _DEV_SPEC_KEYS = (
-    "widths", "streams", "ptrs", "starts", "colors", "colors_k",
-    "anchor", "bbox_min", "bbox_max",
+    "widths", "streams", "ptrs", "starts", "colors", "anchor", "bbox_min",
+    "bbox_max",
 )
 
 
-def _local_frame(dev, frame_params, scale, offset_rel, tb, width, height,
-                 mode, use_pallas, points, fmt, chunk, interpret=False):
-    """One shard's decode+project+collapse+sort+merge; returns local
-    (fb_d, fb_p) in the swizzled pid space (exact shard-local u64 min),
-    plus (lod_n, transform) for reuse.  Mirrors render_frame_native's
-    per-chunk structure (render/methods/huffman_tpu.py)."""
-    from ..render.methods.huffman_tpu import render_chunk_native
+def _local_chunks(dev, frame_params, scale, offset_rel, tb, width, height,
+                  mode, points, fmt, chunk):
+    """One shard's frame setup -> (lod_n, nchunks, chunk, chunk_points).
+
+    chunk_points(c) decodes + projects the shard's chunk c (swizzled
+    pids).  Chunks tile the shard's batches exactly: the default chunk is
+    the largest power-of-two divisor of the shard's batch count, capped
+    at the flagship's CHUNK.
+    """
+    from ..render.methods.huffman_tpu import (
+        CHUNK, frame_lod, render_chunk_native,
+    )
 
     B_loc = dev["anchor"].shape[0]
+    ck = chunk or math.gcd(B_loc, CHUNK)
+    if B_loc % ck:
+        raise ValueError(f"chunk {ck} does not divide {B_loc} batches")
     dp_idx = jax.lax.axis_index("dp")
     # real (unpadded) batches of THIS shard: global ids [dp_idx*B_loc, ..)
-    nb_global = frame_params[23].astype(jnp.int32)
-    nb_local = jnp.clip(nb_global - dp_idx * B_loc, 0, B_loc)
-    view = frame_params[0:16].reshape(4, 4)
-    lod_n = frame_setup_device(
-        view, frame_params[16:22], dev["bbox_min"], dev["bbox_max"],
-        nb_local, width, height, frame_params[22], True,
-    )
-    lod_n = jnp.minimum(lod_n, points)
-    transform = frame_params[24:40].reshape(4, 4)
-    _wt, _ht, size = swizzle_dims(width, height)
+    nb_local = jnp.clip(frame_params[23].astype(jnp.int32) - dp_idx * B_loc,
+                        0, B_loc)
+    lod_n, transform = frame_lod(dev, frame_params, width, height, True,
+                                 points, n_loaded=nb_local)
 
-    parts = []
-    for c in range(B_loc // chunk):
+    def chunk_points(c):
         pid, dep, pay = render_chunk_native(
-            dev, c * chunk, transform, lod_n, scale, offset_rel,
-            width, height, mode, use_pallas, points, fmt, tb,
-            nbatches=chunk, interpret=interpret,
+            dev, c * ck, transform, lod_n, scale, offset_rel,
+            width, height, mode, points, fmt, tb, nbatches=ck,
         )
-        parts.append((pid, dep, pay))
-    if use_pallas:
-        from ..render.pallas_merge import SORT_KEYS, dense_from_sorted_rows
+        return pid.astype(jnp.int32), dep, pay
 
-        # same sort/merge combination as the single-chip flagship
-        # (render_frame_native): nk3 rows + suffix-free matscatter.
-        rows = [_sort_shard_rows(pid, dep, pay, SORT_KEYS)
-                for pid, dep, pay in parts]
-        sp2 = jnp.concatenate([r[0] for r in rows])
-        sd2 = jnp.concatenate([r[1] for r in rows])
-        sy2 = jnp.concatenate([r[2] for r in rows])
-        fb_d, fb_p = dense_from_sorted_rows(sp2, sd2, sy2, size, True,
-                                            tile_cols=_wt,
-                                            fully_sorted=SORT_KEYS == 3,
-                                            pay_bits=24,  # BC1 payload
-                                            interpret=interpret)
-        return fb_d, fb_p, lod_n, transform, parts
-    fb_d, fb_p = sorted_resolve_u64_min_parts(parts, size, True,
-                                              use_pallas=False)
-    return fb_d, fb_p, lod_n, transform, parts
+    return lod_n, B_loc // ck, ck, chunk_points
 
 
 def _pmin_u64(fb_d, fb_p, axis):
@@ -130,14 +91,12 @@ def _pmin_u64(fb_d, fb_p, axis):
 
 
 def make_flagship_render(mesh: Mesh, width: int, height: int,
-                         use_pallas: bool,
                          points: int = POINTS_PER_THREAD,
-                         fmt: str = "fixed", chunk: int | None = None,
-                         interpret: bool = False):
+                         fmt: str = "fixed", chunk: int | None = None):
     """Sharded color frame over the flagship fbatch pipeline.
 
-    Call with a NativeLasData-style dev dict whose per-batch arrays are
-    padded to a multiple of dp * chunk.  Returns the (height, width)
+    Call with a NativeLasData-style dev dict (keys _DEV_SPEC_KEYS) whose
+    batch count divides by dp.  Returns the (height, width)
     u32 image, row-sharded over `sp`.
     """
     sp = mesh.shape["sp"]
@@ -145,21 +104,25 @@ def make_flagship_render(mesh: Mesh, width: int, height: int,
         raise ValueError(f"height {height} not divisible by sp {sp}")
 
     def step(dev, frame_params, scale, offset_rel, tb):
-        from ..render.methods.huffman_tpu import CHUNK
+        from ..render.methods.huffman_tpu import live_chunk_loop
 
-        B_loc = dev["anchor"].shape[0]
-        ck = chunk or min(CHUNK, B_loc)
-        fb_d, fb_p, _lod, _t, _parts = _local_frame(
+        lod_n, nchunks, ck, chunk_points = _local_chunks(
             dev, frame_params, scale, offset_rel, tb, width, height,
-            "color", use_pallas, points, fmt, ck, interpret,
+            "color", points, fmt, chunk,
         )
+        size = swizzle_dims(width, height)[2]
+        empty = jnp.full((size,), EMPTY, jnp.uint32)
+        fb_d, fb_p = live_chunk_loop(
+            lod_n, nchunks, ck,
+            lambda c, fb: merge_u64_min(*fb, *chunk_points(c)),
+            (empty, empty))
         _dmin, p_min = _pmin_u64(fb_d, fb_p, "dp")
         lin = unswizzle_plane(p_min, width, height)
         rows = height // sp
         sp_idx = jax.lax.axis_index("sp")
         sl = jax.lax.dynamic_slice_in_dim(lin, sp_idx * rows * width,
                                           rows * width)
-        return jnp.where(sl != EMPTY, sl, BACKGROUND).reshape(rows, width)
+        return resolve(sl, width, rows)
 
     dev_spec = {k: P("dp") for k in _DEV_SPEC_KEYS}
     rep = P()
@@ -172,66 +135,39 @@ def make_flagship_render(mesh: Mesh, width: int, height: int,
 
 
 def make_flagship_hqs(mesh: Mesh, width: int, height: int,
-                      use_pallas: bool,
                       points: int = POINTS_PER_THREAD,
-                      fmt: str = "fixed", chunk: int | None = None,
-                      interpret: bool = False):
+                      fmt: str = "fixed", chunk: int | None = None):
     """Sharded HQS frame (prepass + tolerance blend + divide resolve).
 
     Single shard_map program: local depth prepass -> dp pmin -> local
     tolerance-gated sums against the GLOBAL depth plane -> dp psum ->
-    sp-sliced divide.  (At the 100M+ single-chip scale the flagship
-    splits HQS into two dispatches for graph size; a dryrun/moderate
-    frame fits one program.)
+    sp-sliced divide.
     """
     sp = mesh.shape["sp"]
     if height % sp != 0:
         raise ValueError(f"height {height} not divisible by sp {sp}")
 
     def step(dev, frame_params, scale, offset_rel, tb):
-        from ..render.methods.huffman_tpu import CHUNK
+        from ..render.methods.huffman_tpu import live_chunk_loop
 
-        B_loc = dev["anchor"].shape[0]
-        ck = chunk or min(CHUNK, B_loc)
-        _wt, _ht, size = swizzle_dims(width, height)
-        # prepass decodes the FULL (uncollapsed) hqs streams once; the
-        # sorted rows feed both the min-merge and the blend sums
-        fb_d, _fb_p, lod_n, transform, parts = _local_frame(
+        lod_n, nchunks, ck, chunk_points = _local_chunks(
             dev, frame_params, scale, offset_rel, tb, width, height,
-            "hqs", use_pallas, points, fmt, ck, interpret,
+            "hqs", points, fmt, chunk,
         )
-        fb_depth = jax.lax.pmin(fb_d, "dp")
+        size = swizzle_dims(width, height)[2]
 
-        if use_pallas:
-            from ..render.pallas_hqs import hqs_sums_from_rows
+        def depth_pass(c, fbd):
+            pid, dep, _rgba = chunk_points(c)
+            return fbd.at[pid].min(dep, mode="drop")
 
-            rows = [_sort_shard_rows(pid, dep, pay, 1)
-                    for pid, dep, pay in parts]
-            sp2 = jnp.concatenate([r[0] for r in rows])
-            sd2 = jnp.concatenate([r[1] for r in rows])
-            sy2 = jnp.concatenate([r[2] for r in rows])
-            acc_r, acc_g, acc_b, acc_n = hqs_sums_from_rows(
-                sp2, sd2, sy2, fb_depth, size, interpret=interpret,
-                tile_cols=swizzle_dims(width, height)[0],
-            )
-        else:
-            acc_r = jnp.zeros((size,), jnp.uint32)
-            acc_g = jnp.zeros((size,), jnp.uint32)
-            acc_b = jnp.zeros((size,), jnp.uint32)
-            acc_n = jnp.zeros((size,), jnp.uint32)
-            for pid, dep, rgba in parts:
-                pid = pid.astype(jnp.int32)
-                w = jax.lax.bitcast_convert_type(dep, jnp.float32)
-                old = jax.lax.bitcast_convert_type(
-                    fb_depth[jnp.clip(pid, 0, size - 1)], jnp.float32
-                )
-                keep = (pid < size) & (w <= old * 1.01)
-                pid2 = jnp.where(keep, pid, size)
-                acc_r = acc_r.at[pid2].add(rgba & 0xFF, mode="drop")
-                acc_g = acc_g.at[pid2].add((rgba >> 8) & 0xFF, mode="drop")
-                acc_b = acc_b.at[pid2].add((rgba >> 16) & 0xFF, mode="drop")
-                acc_n = acc_n.at[pid2].add(jnp.uint32(1), mode="drop")
-
+        fb_depth = jax.lax.pmin(live_chunk_loop(
+            lod_n, nchunks, ck, depth_pass,
+            jnp.full((size,), EMPTY, jnp.uint32)), "dp")
+        zeros = jnp.zeros((size,), jnp.uint32)
+        acc_r, acc_g, acc_b, acc_n = live_chunk_loop(
+            lod_n, nchunks, ck,
+            lambda c, acc: hqs_accumulate(acc, *chunk_points(c), fb_depth),
+            (zeros,) * 4)
         acc_r = jax.lax.psum(acc_r, "dp")
         acc_g = jax.lax.psum(acc_g, "dp")
         acc_b = jax.lax.psum(acc_b, "dp")
@@ -242,10 +178,8 @@ def make_flagship_hqs(mesh: Mesh, width: int, height: int,
         sl = lambda a: jax.lax.dynamic_slice_in_dim(
             unswizzle_plane(a, width, height), sp_idx * rows_n * width,
             rows_n * width)
-        r, g, b, n = sl(acc_r), sl(acc_g), sl(acc_b), sl(acc_n)
-        cnt = jnp.maximum(n, 1)
-        color = (r // cnt) | ((g // cnt) << 8) | ((b // cnt) << 16)
-        return jnp.where(n > 0, color, BACKGROUND).reshape(rows_n, width)
+        return resolve_hqs(sl(acc_r), sl(acc_g), sl(acc_b), sl(acc_n),
+                           width, rows_n)
 
     dev_spec = {k: P("dp") for k in _DEV_SPEC_KEYS}
     rep = P()

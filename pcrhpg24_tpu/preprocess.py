@@ -123,7 +123,7 @@ def preprocess_las(las_path: str, out_path: str, sort: bool = True, verbose=True
 def preprocess_las_tpc(las_path: str, out_path: str, sort: bool = True,
                        verbose=True, codec: str = "fixed",
                        color_fmt: str = "bc1"):
-    """LAS -> `.tpc` (TPU-native format).
+    """LAS -> `.tpc` (native format).
 
     codec="fixed" writes v2 fbatch blobs (fixed-width, fastest decode —
     the flagship format); codec="huffman" writes v1 bucket-Huffman

@@ -2,11 +2,11 @@
 
 BC1 blocks hold 16 *consecutive* points of a chain, so for the batch
 layouts used here the block words needed by point (lane, i) are an
-affine function of the indices — a reshape + broadcast, never a gather
-(TPU gathers run ~0.1 Gelem/s; this is pure VPU).
+affine function of the indices — a reshape + broadcast, never a gather,
+which XLA fuses into the projection.
 
 Layouts:
-* native kernel layout (C, 64, 8, 128): local id = (g*128+l)*64 + i,
+* native decoder layout (C, 64, 8, 128): local id = (g*128+l)*64 + i,
   block = (g*128+l)*4 + i//16 -> colors reshaped (C, 8, 128, 4, 2).
 * reference layout (C, 1024, 64): block = lane*4 + i//16.
 """

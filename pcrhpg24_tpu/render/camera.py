@@ -212,6 +212,9 @@ def frame_setup_device(view, proj_params, bbox_min, bbox_max, n_loaded,
     `Camera.proj_params`; bbox_*: (B,3) f32 device; n_loaded: scalar
     i32.  Returns lod_n (B,) i32 (0 = culled).
     """
+    from functools import partial
+
+    import jax
     import jax.numpy as jnp
 
     a, b, c, d = (proj_params[i] for i in range(4))
@@ -222,13 +225,16 @@ def frame_setup_device(view, proj_params, bbox_min, bbox_max, n_loaded,
     )
     B = bbox_min.shape[0]
 
+    # full-f32 products: a matmul at default precision may run in TF32
+    # on the GPU and move a batch across a LOD bucket or the frustum
+    mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
     center = 0.5 * (bbox_min + bbox_max)
     radius = jnp.linalg.norm(bbox_min - bbox_max, axis=1)
     ch = jnp.concatenate([center, jnp.ones((B, 1), center.dtype)], 1)
-    vc = ch @ view.T
+    vc = mm(ch, view.T)
     ve = vc + jnp.pad(radius[:, None], ((0, 0), (0, 3)))
-    pc = vc @ proj.T
-    pe = ve @ proj.T
+    pc = mm(vc, proj.T)
+    pe = mm(ve, proj.T)
     sc = 0.5 * (pc[:, :2] / pc[:, 3:4] + 1.0) * jnp.asarray([width, height], pc.dtype)
     se = 0.5 * (pe[:, :2] / pe[:, 3:4] + 1.0) * jnp.asarray([width, height], pc.dtype)
     pixel_size = jnp.linalg.norm(se - sc, axis=1)
@@ -243,7 +249,8 @@ def frame_setup_device(view, proj_params, bbox_min, bbox_max, n_loaded,
         corner = jnp.where(
             normals[None, :, :] > 0, bbox_max[:, None, :], bbox_min[:, None, :]
         )
-        dist = jnp.einsum("bpc,pc->bp", corner, normals) + consts[None, :]
+        dist = jnp.einsum("bpc,pc->bp", corner, normals,
+                          precision=jax.lax.Precision.HIGHEST) + consts[None, :]
         vis = (dist >= 0).all(axis=1)
         n = jnp.where(vis, n, 0)
 
@@ -258,7 +265,7 @@ def batch_translations(wvp: np.ndarray, anchors_i: np.ndarray,
     The reference switches to a double-precision decode+project path for
     close-up batches (UseDouble = pixelSize >= 100, render.cu:346-379,
     459-461) because absolute f32 coordinates of km-scale clouds lose
-    millimetres.  The TPU-shaped equivalent: decode to batch-relative
+    millimetres.  The equivalent here: decode to batch-relative
     i32 (subtract an exact per-batch anchor), keep the f32 projection on
     the small relative coordinates, and fold the anchor's world-space
     contribution into this per-batch translation column — computed here

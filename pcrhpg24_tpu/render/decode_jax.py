@@ -7,7 +7,8 @@ table lookup becomes a gather into per-batch 4096-entry tables, and the
 sequential 64-point x 3-component loop becomes a `lax.scan`.
 
 This path is bit-exact with the CPU codec and works on any backend; the
-Pallas kernel on the TPU-native stream layout is the performance path.
+flagship's native `.tpc` layout (render/methods/huffman_tpu.py) is the
+performance path.
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ import numpy as np
 
 from ...constants import POINTS_PER_WORKGROUP, RENDER_CHUNK_BATCHES
 from ...engine.method import Method, Runtime
-from ..raster import EMPTY, resolve, sorted_scatter_u64_min
+from ..raster import EMPTY, merge_u64_min, resolve
 from .loop_las import resolve_indexed
 
 CHUNK_PTS = RENDER_CHUNK_BATCHES * POINTS_PER_WORKGROUP
@@ -43,7 +43,7 @@ def raster_chunk_basic(
     pid = jnp.where(ok, sx + sy * width, size)
     depth = jax.lax.bitcast_convert_type(w, jnp.uint32)
     payload = (base_index + jnp.arange(x.shape[0])).astype(jnp.uint32)
-    return sorted_scatter_u64_min(pid, depth, payload, size, fb_d, fb_p)
+    return merge_u64_min(fb_d, fb_p, pid, depth, payload)
 
 
 class BasicMethod(Method):

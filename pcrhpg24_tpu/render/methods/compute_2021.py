@@ -4,9 +4,8 @@ The reference's five 2021 methods (modules/compute_2021_*: `early-z`,
 `early-z & reduce`, `dedup`, `hqs`, `GL_POINTS`) differ only in *GPU
 scheduling tricks* around the same math — early depth test before the
 atomic, warp-level deduplication of identical pixels, ballot reductions
-— plus one classic GL_POINTS vertex/fragment pipeline.  On TPU there
-are no atomics to shortcut: the scatter-min framebuffer is already the
-"reduce" formulation, so `early-z`, `early-z & reduce`, `dedup` and
+— plus one classic GL_POINTS vertex/fragment pipeline.  Here the
+scatter-min framebuffer is already the "reduce" formulation, so `early-z`, `early-z & reduce`, `dedup` and
 `GL_POINTS` are numerically one method here (registered under each
 reference name for API parity, with identical images — which is also
 true of the originals).  `hqs` is the average-blend variant.
@@ -22,17 +21,18 @@ import numpy as np
 
 from ...constants import POINTS_PER_WORKGROUP, RENDER_CHUNK_BATCHES
 from ...engine.method import Method, Runtime
-from ..raster import EMPTY, resolve, sorted_scatter_u64_min
+from ..raster import (
+    EMPTY, hqs_accumulate, merge_u64_min, resolve, resolve_hqs,
+)
 from .loop_las import resolve_indexed
 
 CHUNK_PTS = RENDER_CHUNK_BATCHES * POINTS_PER_WORKGROUP
 
 
-@partial(jax.jit, static_argnames=("width", "height"), donate_argnums=(5, 6))
-def raster_chunk_f32(
-    fx, fy, fz, transform, base_index, fb_d, fb_p, width: int, height: int,
-    n_valid=None,
-):
+def _project_f32(fx, fy, fz, transform, base_index, width: int, height: int,
+                 n_valid=None):
+    """One chunk of f32 points -> (pid, depth, payload = point index);
+    pid == width*height for a dropped point."""
     t = transform.astype(jnp.float32)
     cx = t[0, 0] * fx + t[0, 1] * fy + t[0, 2] * fz + t[0, 3]
     cy = t[1, 0] * fx + t[1, 1] * fy + t[1, 2] * fz + t[1, 3]
@@ -45,11 +45,18 @@ def raster_chunk_f32(
     sx = ((ndc_x * 0.5 + 0.5) * width).astype(jnp.int32)
     sy = ((ndc_y * 0.5 + 0.5) * height).astype(jnp.int32)
     ok &= (sx >= 0) & (sx < width) & (sy >= 0) & (sy < height)
-    size = width * height
-    pid = jnp.where(ok, sx + sy * width, size)
+    pid = jnp.where(ok, sx + sy * width, width * height)
     depth = jax.lax.bitcast_convert_type(w, jnp.uint32)
-    payload = idx.astype(jnp.uint32)
-    return sorted_scatter_u64_min(pid, depth, payload, size, fb_d, fb_p)
+    return pid, depth, idx.astype(jnp.uint32)
+
+
+@partial(jax.jit, static_argnames=("width", "height"), donate_argnums=(5, 6))
+def raster_chunk_f32(
+    fx, fy, fz, transform, base_index, fb_d, fb_p, width: int, height: int,
+    n_valid=None,
+):
+    return merge_u64_min(fb_d, fb_p, *_project_f32(
+        fx, fy, fz, transform, base_index, width, height, n_valid))
 
 
 class Compute2021(Method):
@@ -96,28 +103,10 @@ def hqs_chunk_f32(
     fx, fy, fz, rgba, transform, fb_depth, acc_r, acc_g, acc_b, acc_n,
     width: int, height: int, n_valid, base_index,
 ):
-    t = transform.astype(jnp.float32)
-    cx = t[0, 0] * fx + t[0, 1] * fy + t[0, 2] * fz + t[0, 3]
-    cy = t[1, 0] * fx + t[1, 1] * fy + t[1, 2] * fz + t[1, 3]
-    w = t[3, 0] * fx + t[3, 1] * fy + t[3, 2] * fz + t[3, 3]
-    ndc_x, ndc_y = cx / w, cy / w
-    ok = (w > 0) & (jnp.abs(ndc_x) <= 1) & (jnp.abs(ndc_y) <= 1)
-    ok &= (base_index + jnp.arange(fx.shape[0])) < n_valid
-    sx = ((ndc_x * 0.5 + 0.5) * width).astype(jnp.int32)
-    sy = ((ndc_y * 0.5 + 0.5) * height).astype(jnp.int32)
-    ok &= (sx >= 0) & (sx < width) & (sy >= 0) & (sy < height)
-    size = width * height
-    pid = jnp.where(ok, sx + sy * width, size)
-    old = jax.lax.bitcast_convert_type(
-        fb_depth[jnp.clip(pid, 0, size - 1)], jnp.float32
-    )
-    keep = ok & (w <= old * 1.01)
-    pid2 = jnp.where(keep, pid, size)
-    acc_r = acc_r.at[pid2].add(rgba & 0xFF, mode="drop")
-    acc_g = acc_g.at[pid2].add((rgba >> 8) & 0xFF, mode="drop")
-    acc_b = acc_b.at[pid2].add((rgba >> 16) & 0xFF, mode="drop")
-    acc_n = acc_n.at[pid2].add(jnp.uint32(1), mode="drop")
-    return acc_r, acc_g, acc_b, acc_n
+    pid, depth, _idx = _project_f32(fx, fy, fz, transform, base_index,
+                                    width, height, n_valid)
+    return hqs_accumulate((acc_r, acc_g, acc_b, acc_n), pid, depth, rgba,
+                          fb_depth)
 
 
 class Compute2021Hqs(Compute2021):
@@ -126,8 +115,6 @@ class Compute2021Hqs(Compute2021):
         self.description = "2021 HQS baseline (average blend)"
 
     def render(self, renderer):
-        from .huffman_hqs import resolve_hqs
-
         las = self.las
         las.process(renderer)
         W, H = renderer.width, renderer.height

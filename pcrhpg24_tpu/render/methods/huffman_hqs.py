@@ -6,7 +6,7 @@ depth, a color pass re-decodes every batch and accumulates r/g/b/count
 sums for fragments within 1% of the minimum depth
 (render.cu:296 `pos.w <= oldDepth * 1.01`), and a resolve divides.
 
-TPU mapping: the u64 atomicAdd RG/BA accumulators (render.cu:311-313)
+Here the u64 atomicAdd RG/BA accumulators (render.cu:311-313)
 become u32 scatter-adds per channel; unlike min-scatter, adds commute
 across chunks so chunked accumulation needs no merge trick.  Both passes
 decode (the reference also decodes twice).
@@ -25,7 +25,7 @@ from ...engine.debug import Debug
 from ...engine.method import Method, Runtime
 from ..bc1_layout import bc1_payload_reference
 from ..decode_jax import decode_batches_core
-from ..raster import EMPTY, project
+from ..raster import EMPTY, hqs_accumulate, project, resolve_hqs
 from .huffman_mem_iter import CHUNK, HuffmanMemIter, _slice_rows
 
 
@@ -82,35 +82,12 @@ def depth_chunk(dev, chunk_start, transform, lod_n, scale, offset_rel,
 def accumulate_chunk(dev, chunk_start, transform, lod_n, scale, offset_rel,
                      fb_depth, acc_r, acc_g, acc_b, acc_n,
                      width: int, height: int):
-    pid, w, rgba, ok = _project_points(
+    pid, w, rgba, _ok = _project_points(
         dev, chunk_start, transform, lod_n, scale, offset_rel, width, height
     )
-    size = width * height
-    old = jax.lax.bitcast_convert_type(
-        fb_depth[jnp.clip(pid, 0, size - 1)], jnp.float32
-    )
-    keep = ok & (w <= old * 1.01)  # render.cu:296 tolerance
-    pid2 = jnp.where(keep, pid, size)
-    r = rgba & 0xFF
-    g = (rgba >> 8) & 0xFF
-    b = (rgba >> 16) & 0xFF
-    acc_r = acc_r.at[pid2].add(r, mode="drop")
-    acc_g = acc_g.at[pid2].add(g, mode="drop")
-    acc_b = acc_b.at[pid2].add(b, mode="drop")
-    acc_n = acc_n.at[pid2].add(jnp.uint32(1), mode="drop")
-    return acc_r, acc_g, acc_b, acc_n
-
-
-@partial(jax.jit, static_argnames=("width", "height"))
-def resolve_hqs(acc_r, acc_g, acc_b, acc_n, width: int, height: int):
-    """Average accumulated colors (resolve.cu:29-41)."""
-    cnt = jnp.maximum(acc_n, 1)
-    r = acc_r // cnt
-    g = acc_g // cnt
-    b = acc_b // cnt
-    color = r | (g << 8) | (b << 16)
-    img = jnp.where(acc_n > 0, color, jnp.uint32(0x00443322))
-    return img.reshape(height, width)
+    depth = jax.lax.bitcast_convert_type(w, jnp.uint32)
+    return hqs_accumulate((acc_r, acc_g, acc_b, acc_n), pid, depth, rgba,
+                          fb_depth)
 
 
 class HuffmanHQS(HuffmanMemIter):

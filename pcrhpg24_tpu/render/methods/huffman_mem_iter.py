@@ -6,7 +6,7 @@ batch is frustum-culled, assigned a screen-size LOD point budget,
 Huffman-decoded, projected, and depth-tested into a (depth<<32|payload)
 framebuffer, then resolved to an image.
 
-TPU mapping:
+Mapping:
 * one CUDA block per batch        -> batch axis of the vectorized decoder
 * warp ballot stream refill       -> 32-lane segment prefix sums
 * u64 atomicMin framebuffer       -> per-chunk two-pass u32 scatter-min
@@ -33,7 +33,7 @@ from ...engine.method import Method, Runtime
 from ..bc1_layout import bc1_payload_reference
 from ..camera import batches_in_frustum, frustum_planes, lod_points_per_thread
 from ..decode_jax import decode_batches_core
-from ..raster import EMPTY, project, resolve, sorted_scatter_u64_min
+from ..raster import EMPTY, merge_u64_min, resolve
 
 CHUNK = RENDER_CHUNK_BATCHES  # batches per device pass (16.7M points)
 
@@ -116,7 +116,7 @@ def render_chunk(
     cy = t[1, 0] * x + t[1, 1] * y + t[1, 2] * z + add(1)
     w = t[3, 0] * x + t[3, 1] * y + t[3, 2] * z + add(3)
 
-    inv = 1.0 / w  # reciprocal-multiply, matching the Pallas paths
+    inv = 1.0 / w  # reciprocal-multiply, as render_chunk_native does
     ndc_x = (cx * inv).reshape(-1)
     ndc_y = (cy * inv).reshape(-1)
     w = w.reshape(-1)
@@ -129,7 +129,7 @@ def render_chunk(
     pid = jnp.where(ok, px + py * width, size)
     depth = jax.lax.bitcast_convert_type(w, jnp.uint32)
 
-    return sorted_scatter_u64_min(pid, depth, pay, size, fb_d, fb_p)
+    return merge_u64_min(fb_d, fb_p, pid, depth, pay)
 
 
 class HuffmanMemIter(Method):

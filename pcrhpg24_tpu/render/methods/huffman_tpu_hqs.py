@@ -1,18 +1,12 @@
-"""`huffman_tpu_hqs` — HQS over the native format with Pallas decode.
+"""`huffman_tpu_hqs` — HQS over the native format.
 
-Same three-pass semantics as `huffman_hqs` (reference:
-modules/huffman_hqs/: depth prepass + 1%-depth-tolerance average blend
-+ divide resolve, huffman_hqs.h:198-259) on the flagship pipeline —
-with one structural improvement the reference's atomics can't express:
-the point stream is decoded, projected, and pid-sorted ONCE, and the
-sorted rows feed BOTH the min-depth merge (prepass) and the
-suffix-sum blend kernel.  The reference decodes everything twice
-(depth.cu then render.cu); here the second decode+project+sort is
-replaced by one extra kernel pass over the already-sorted stream.
-
-The two stages remain SEPARATE jit programs: one fused HQS graph is
-~2x the color frame's and exceeded the compile service's request-size
-limit at 100M points (experiments/NOTES.md).
+Same three-pass semantics as `huffman_hqs` (reference: modules/
+huffman_hqs/: depth prepass + 1%-depth-tolerance average blend + divide
+resolve, huffman_hqs.h:198-259) on the flagship pipeline.  Like the
+reference (depth.cu, then render.cu), the frame decodes every visible
+chunk twice: once for the min-depth plane, once for the tolerance-gated
+(r, g, b, count) sums.  Both passes are live-chunk loops inside ONE jit
+program, so its size does not grow with the scene.
 """
 
 from __future__ import annotations
@@ -24,177 +18,60 @@ import jax.numpy as jnp
 import numpy as np
 
 from ...engine.debug import Debug
-from ..raster import EMPTY, swizzle_dims, unswizzle_plane
-from .huffman_tpu import CHUNK, SORT_ROWS, HuffmanTpu, render_chunk_native
-
-
-def _hqs_frame_setup(dev, frame_params, width, height, cull, points):
-    from ..camera import frame_setup_device
-
-    view = frame_params[0:16].reshape(4, 4)
-    lod_n = frame_setup_device(
-        view, frame_params[16:22], dev["bbox_min"], dev["bbox_max"],
-        frame_params[23].astype(jnp.int32), width, height,
-        frame_params[22], cull,
-    )
-    # clamp to the static decode bucket (see render_frame_native)
-    lod_n = jnp.minimum(lod_n, points)
-    return lod_n, frame_params[24:40].reshape(4, 4)
+from ..raster import (
+    EMPTY, hqs_accumulate, resolve_hqs, swizzle_dims, unswizzle_plane,
+)
+from .huffman_tpu import (
+    CHUNK, HuffmanTpu, frame_lod, live_chunk_loop, render_chunk_native,
+)
 
 
 @partial(
     jax.jit,
-    static_argnames=("width", "height", "nchunks", "use_pallas", "cull",
-                     "fmt", "points", "color_fmt"),
+    static_argnames=("width", "height", "nchunks", "cull", "fmt", "points",
+                     "color_fmt"),
 )
-def hqs_prepass_native(dev, frame_params, scale, offset_rel,
-                       width: int, height: int, nchunks: int,
-                       use_pallas: bool, cull: bool, fmt: str = "tbatch",
-                       tb=None, points: int = 64, color_fmt: str = "bc1"):
-    """HQS stage 1: decode+project+sort every chunk ONCE.
-
-    Returns (fb_depth, streams): fb_depth is the dense per-pixel
-    min-depth plane in the SWIZZLED pid space (reference: depth.cu's
-    u32 atomicMin prepass), and streams = (sps, sds, sys) are the
-    pid-sorted rows that stage 2 re-uses for the tolerance blend — the
-    sort-once-use-twice structure.  On the CPU/XLA fallback streams is
-    None and fb_depth comes from a scatter-min.
-    """
-    lod_n, transform = _hqs_frame_setup(dev, frame_params, width, height,
-                                        cull, points)
-    _wt, _ht, size = swizzle_dims(width, height)
-
-    if use_pallas:
-        from ..pallas_merge import SORT_KEYS, dense_from_sorted_rows
-
-        def prep_body(carry, c):
-            pid, dep, pay = render_chunk_native(
-                dev, c * CHUNK, transform, lod_n, scale, offset_rel,
-                width, height, "hqs", use_pallas, points, fmt, tb,
-                color_fmt=color_fmt,
-            )
-            n = pid.shape[0] // SORT_ROWS
-            sp, sd, sy = jax.lax.sort(
-                [pid.reshape(SORT_ROWS, n).astype(jnp.uint32),
-                 dep.reshape(SORT_ROWS, n), pay.reshape(SORT_ROWS, n)],
-                num_keys=SORT_KEYS, is_stable=False, dimension=1,
-            )
-            return carry, (sp, sd, sy)
-
-        _c, (sps, sds, sys_) = jax.lax.scan(
-            prep_body, 0, jnp.arange(nchunks, dtype=jnp.int32)
-        )
-        nseg = sps.shape[-1]
-        sps = sps.reshape(-1, nseg)
-        sds = sds.reshape(-1, nseg)
-        sys_ = sys_.reshape(-1, nseg)
-        # the u64 (depth<<32|payload) min's depth plane IS the min depth
-        # (payload tie-breaks never change it) — pay_bits=0 drops all 4
-        # payload byte planes from the prepass scatter
-        fb_depth, _fb_p = dense_from_sorted_rows(
-            sps, sds, sys_, size, need_depth=True, tile_cols=_wt,
-            fully_sorted=SORT_KEYS == 3, pay_bits=0,
-        )
-        return fb_depth, (sps, sds, sys_)
-
-    fb_depth = jnp.full((size,), EMPTY, jnp.uint32)
-    for c in range(nchunks):
-        pid, dep, _pay = render_chunk_native(
-            dev, c * CHUNK, transform, lod_n, scale, offset_rel,
-            width, height, "hqs", use_pallas, points, fmt, tb,
-            color_fmt=color_fmt,
-        )
-        fb_depth = fb_depth.at[pid.astype(jnp.int32)].min(dep, mode="drop")
-    return fb_depth, None
-
-
-@partial(
-    jax.jit,
-    static_argnames=("width", "height", "nchunks", "use_pallas", "cull",
-                     "fmt", "points", "color_fmt"),
-)
-def hqs_blend_native(dev, frame_params, scale, offset_rel, fb_depth,
-                     streams, width: int, height: int, nchunks: int,
-                     use_pallas: bool, cull: bool, fmt: str = "tbatch",
-                     tb=None, points: int = 64, color_fmt: str = "bc1"):
-    """HQS stage 2: tolerance-gated (r,g,b,count) sums + divide resolve.
-
-    On the Pallas path `streams` carries stage 1's sorted rows, so this
-    stage is ONE kernel pass (segmented suffix-sums with the in-kernel
-    depth-tolerance test, the reference's two i64 atomicAdds —
-    huffman_hqs/render.cu:311-313) plus the divide.
-    """
-    _wt, _ht, size = swizzle_dims(width, height)
-    if use_pallas:
-        from ..pallas_hqs import hqs_sums_from_rows
-
-        sps, sds, sys_ = streams
-        acc_r, acc_g, acc_b, acc_n = hqs_sums_from_rows(
-            sps, sds, sys_, fb_depth, size, tile_cols=_wt
-        )
-    else:
-        lod_n, transform = _hqs_frame_setup(dev, frame_params, width,
-                                            height, cull, points)
-        acc_r = jnp.zeros((size,), jnp.uint32)
-        acc_g = jnp.zeros((size,), jnp.uint32)
-        acc_b = jnp.zeros((size,), jnp.uint32)
-        acc_n = jnp.zeros((size,), jnp.uint32)
-        for c in range(nchunks):
-            pid, dep, rgba = render_chunk_native(
-                dev, c * CHUNK, transform, lod_n, scale, offset_rel,
-                width, height, "hqs", use_pallas, points, fmt, tb,
-                color_fmt=color_fmt,
-            )
-            pid = pid.astype(jnp.int32)
-            w = jax.lax.bitcast_convert_type(dep, jnp.float32)
-            old = jax.lax.bitcast_convert_type(
-                fb_depth[jnp.clip(pid, 0, size - 1)], jnp.float32
-            )
-            keep = (pid < size) & (w <= old * 1.01)
-            pid2 = jnp.where(keep, pid, size)
-            acc_r = acc_r.at[pid2].add(rgba & 0xFF, mode="drop")
-            acc_g = acc_g.at[pid2].add((rgba >> 8) & 0xFF, mode="drop")
-            acc_b = acc_b.at[pid2].add((rgba >> 16) & 0xFF, mode="drop")
-            acc_n = acc_n.at[pid2].add(jnp.uint32(1), mode="drop")
-
-    # back to linear pixel space for the resolve + all external consumers
-    acc_r = unswizzle_plane(acc_r, width, height)
-    acc_g = unswizzle_plane(acc_g, width, height)
-    acc_b = unswizzle_plane(acc_b, width, height)
-    acc_n = unswizzle_plane(acc_n, width, height)
-    cnt = jnp.maximum(acc_n, 1)
-    color = (acc_r // cnt) | ((acc_g // cnt) << 8) | ((acc_b // cnt) << 16)
-    img = jnp.where(acc_n > 0, color, jnp.uint32(0x00443322)).reshape(
-        height, width
-    )
-    return acc_n, img
-
-
 def hqs_frame_native(dev, frame_params, scale, offset_rel,
-                     width: int, height: int, nchunks: int,
-                     use_pallas: bool, cull: bool, fmt: str = "tbatch",
-                     tb=None, points: int = 64, color_fmt: str = "bc1"):
-    """Full HQS frame = prepass + blend, dispatched as TWO jit programs
-    (deliberately not jitted itself — see hqs_prepass_native; wrapping
-    this in an outer jit would re-inline both into one oversized graph).
-    Returns (fb_depth, acc_n, img) with fb_depth in LINEAR pixel space.
+                     width: int, height: int, nchunks: int, cull: bool,
+                     fmt: str = "tbatch", tb=None, points: int = 64,
+                     color_fmt: str = "bc1"):
+    """Full HQS frame: min-depth pass + tolerance blend + divide.
+
+    Returns (fb_depth, acc_n, img), planes in linear pixel space.
     """
-    fb_depth, streams = hqs_prepass_native(
-        dev, frame_params, scale, offset_rel, width, height, nchunks,
-        use_pallas, cull, fmt, tb, points, color_fmt,
-    )
-    acc_n, img = hqs_blend_native(
-        dev, frame_params, scale, offset_rel, fb_depth, streams, width,
-        height, nchunks, use_pallas, cull, fmt, tb, points, color_fmt,
-    )
-    return unswizzle_plane(fb_depth, width, height), acc_n, img
+    lod_n, transform = frame_lod(dev, frame_params, width, height, cull,
+                                 points)
+    _wt, _ht, size = swizzle_dims(width, height)
+
+    def chunk_points(c):
+        pid, dep, rgba = render_chunk_native(
+            dev, c * CHUNK, transform, lod_n, scale, offset_rel,
+            width, height, "hqs", points, fmt, tb, color_fmt=color_fmt,
+        )
+        return pid.astype(jnp.int32), dep, rgba
+
+    def depth_pass(c, fbd):
+        pid, dep, _rgba = chunk_points(c)
+        return fbd.at[pid].min(dep, mode="drop")
+
+    fb_depth = live_chunk_loop(lod_n, nchunks, CHUNK, depth_pass,
+                               jnp.full((size,), EMPTY, jnp.uint32))
+
+    def blend_pass(c, acc):
+        return hqs_accumulate(acc, *chunk_points(c), fb_depth)
+
+    zeros = jnp.zeros((size,), jnp.uint32)
+    acc = live_chunk_loop(lod_n, nchunks, CHUNK, blend_pass, (zeros,) * 4)
+    acc = [unswizzle_plane(a, width, height) for a in acc]
+    img = resolve_hqs(*acc, width, height)
+    return unswizzle_plane(fb_depth, width, height), acc[3], img
 
 
 class HuffmanTpuHqs(HuffmanTpu):
     def __init__(self, renderer, tpc):
         super().__init__(renderer, tpc)
         self.name = "huffman_tpu_hqs"
-        self.description = "HQS average blend, tbatch Pallas decode"
+        self.description = "HQS average blend, native-format decode"
 
     def render(self, renderer):
         las = self.las
@@ -228,7 +105,7 @@ class HuffmanTpuHqs(HuffmanTpu):
         ))
         fb_depth, acc_n, img = hqs_frame_native(
             las.dev, jnp.asarray(fp), scale, offset_rel, W, H,
-            (B + CHUNK - 1) // CHUNK, jax.default_backend() == "tpu",
+            (las.num_batches + CHUNK - 1) // CHUNK,
             Debug.frustum_culling_enabled and Debug.update_frustum,
             "fixed" if getattr(las, "version", 1) == 2 else "tbatch", tb,
             points, getattr(las, "color_fmt", "bc1"),

@@ -12,9 +12,9 @@ Note: the reference's 30-bit unpack has a copy-paste defect (render.cs:
 the defect.
 
 `loop_las2`'s uvec4 double-buffered prefetch (compute_loop_las2/
-render.cs:300-446) is a GPU memory-coalescing technique with no TPU
-analogue — XLA already streams the dense planes optimally — so it is
-registered as an alias with identical numerics.
+render.cs:300-446) is a hand-coalescing technique that XLA's dense plane
+streaming already covers, so it is registered as an alias with
+identical numerics.
 """
 
 from __future__ import annotations
@@ -29,15 +29,14 @@ from ...constants import POINTS_PER_WORKGROUP, RENDER_CHUNK_BATCHES
 from ...engine.debug import Debug
 from ...engine.method import Method, Runtime
 from ..camera import batches_in_frustum, frustum_planes
-from ..raster import EMPTY, resolve, sorted_scatter_u64_min
+from ..raster import (
+    EMPTY, hqs_accumulate, merge_u64_min, resolve, resolve_hqs,
+)
 
 CHUNK_PTS = RENDER_CHUNK_BATCHES * POINTS_PER_WORKGROUP
 STEPS_30BIT = float(1 << 30)
 STEPS_10BIT = 1024.0
 MASK = 1023
-# row width of the segmented nk1 sorts feeding the Pallas merge kernel
-# (the flagship's tuned point, experiments/r3_sortrows.py)
-SORT_SEG = 32768
 
 
 def precision_levels(view, proj, bbox_min, bbox_max, width, height):
@@ -70,97 +69,18 @@ def raster_chunk_101010(
         xyz4, xyz8, xyz12, level_pt, bmin_pt, bmax_pt, transform,
         base_index, width, height, mask_pt,
     )
-    size = width * height
-    return sorted_scatter_u64_min(pid, depth, payload, size, fb_d, fb_p)
+    return merge_u64_min(fb_d, fb_p, pid, depth, payload)
 
 
 
-# nodes-path sort geometry: 16384-wide rows sorted in slabs of <= 128
-# rows per lax.sort call.  XLA's batched TPU sort degrades superlinearly
-# with batch count at fixed width (one (512, 32768) nk3 call = 25.9 ms
-# for a 16.7M chunk vs 8x(128, 16384) = 8.2 ms), so big chunks sort as
-# several slab calls; full (pid, depth, payload) keys (num_keys=3) make
-# every pid run's head its exact u64 min, which lets the matscatter
-# merge kernel skip its segmented suffix-min (27.5 -> 14.4 ms per
-# 16.7M chunk, experiments/r5_potree_parts.py).
-SORT_N = 16384
-SORT_SLAB = 128
-
-
-def _sort_rows_slabbed(spid, depth, payload):
-    """(N,) streams -> (N/SORT_N, SORT_N) rows, each pid-run-head exact
-    (nk3), sorted in <=SORT_SLAB-row slabs."""
-    total = spid.shape[0]
-    n = SORT_N if total % SORT_N == 0 else total
-    rows2 = total // n
-    slab = min(SORT_SLAB, rows2)
-    outs = []
-    for i in range(0, rows2, slab):
-        rsl = slice(i * n, (i + slab) * n)
-        outs.append(jax.lax.sort(
-            [spid[rsl].reshape(-1, n), depth[rsl].reshape(-1, n),
-             payload[rsl].reshape(-1, n)],
-            num_keys=3, is_stable=False, dimension=1))
-    if len(outs) == 1:
-        return outs[0]
-    return (jnp.concatenate([o[0] for o in outs]),
-            jnp.concatenate([o[1] for o in outs]),
-            jnp.concatenate([o[2] for o in outs]))
-
-
-@partial(jax.jit, static_argnames=("width", "height", "rows"))
-def project_rows_101010_nodes(
-    xyz4, xyz8, xyz12, nid, bmin_nodes, bmax_nodes, code_nodes, transform,
-    base_index, width: int, height: int, rows: int, starts_nodes=None,
-):
-    """Node-indexed projection -> pid-sorted rows in the SWIZZLED tile
-    id space, ready for pallas_merge.dense_from_sorted_rows.  This is
-    the flagship resolve applied to the Potree path: per-chunk
-    SORT_ROWS-segmented nk1 sorts + the scatter-free merge kernel
-    replace the 3-key sort + unique scatter of raster_chunk_101010
-    (18.7 ms sort + serial scatter per 16.7M chunk on TPU).
-    `starts_nodes` (per-node first-point index) enables the per-node
-    prefix point budget in the code's take field (node_budget)."""
-    from ..raster import swizzle_dims, swizzle_pid
-
-    nidc = jnp.clip(nid, 0, code_nodes.shape[0] - 1).astype(jnp.int32)
-    code = code_nodes[nidc]
-    lvl = (code >> 1) & 7
-    vis = (code & 1) == 1
-    if starts_nodes is not None:
-        local = (base_index.astype(jnp.int32)
-                 + jnp.arange(xyz4.shape[0], dtype=jnp.int32)
-                 - starts_nodes[nidc])
-        vis &= local < (code >> 4)  # prefix budget (node_budget)
-    bmi = tuple(bmin_nodes[:, k][nidc] for k in range(3))
-    bma = tuple(bmax_nodes[:, k][nidc] for k in range(3))
-    pid, depth, payload = _project_101010(
-        xyz4, xyz8, xyz12, lvl, bmi, bma, transform, base_index,
-        width, height, vis,
-    )
-    # re-express in the swizzled 32x32-tile id space (linear pids make
-    # a screen-compact segment span many 1024-px tiles)
-    _wt, _ht, size = swizzle_dims(width, height)
-    lin = jnp.clip(pid, 0, width * height - 1)
-    px = lin % width
-    py = lin // width
-    spid = jnp.where(pid < width * height,
-                     swizzle_pid(px, py, width).astype(jnp.uint32),
-                     jnp.uint32(size))
-    return _sort_rows_slabbed(spid, depth, payload)
-
-
-@partial(jax.jit, static_argnames=("width", "height", "rows"))
-def project_rows_101010_planes(
+def project_101010_planes(
     xyz4, xyz8, xyz12, code_pt, bmi, bma, transform,
-    base_index, width: int, height: int, rows: int, payload=None,
+    base_index, width: int, height: int, payload=None,
 ):
-    """Plane-input variant of project_rows_101010_nodes: per-point
-    node attributes arrive as materialized planes (code_pt i32 plane;
-    bmi/bma 3-tuples of f32 planes) instead of node-table gathers —
-    the gather-free path render_frame_nodes_tpu builds them from
-    per-node XOR-deltas (TPU gathers run ~0.13 Gelem/s; at 300M
-    resident points the gathers alone were ~14 s/frame)."""
+    """Plane-input projection for the Potree frames: per-point node
+    attributes arrive as materialized planes (code_pt i32 plane; bmi/bma
+    3-tuples of f32 planes).  Returns (pid, depth, payload) with pids in
+    the SWIZZLED tile id space (raster.swizzle_pid), `size` = dropped."""
     from ..raster import swizzle_dims, swizzle_pid
 
     lvl = (code_pt >> 1) & 7
@@ -174,12 +94,9 @@ def project_rows_101010_planes(
     payload = pay_idx if payload is None else payload.astype(jnp.uint32)
     _wt, _ht, size = swizzle_dims(width, height)
     lin = jnp.clip(pid, 0, width * height - 1)
-    px = lin % width
-    py = lin // width
     spid = jnp.where(pid < width * height,
-                     swizzle_pid(px, py, width).astype(jnp.uint32),
-                     jnp.uint32(size))
-    return _sort_rows_slabbed(spid, depth, payload)
+                     swizzle_pid(lin % width, lin // width, width), size)
+    return spid, depth, payload
 
 
 @partial(jax.jit, static_argnames=("width", "height"), donate_argnums=(9, 10))
@@ -210,16 +127,14 @@ def raster_chunk_101010_nodes(
                  + jnp.arange(xyz4.shape[0], dtype=jnp.int32)
                  - starts_nodes[nidc])
         vis &= local < (code >> 4)  # prefix budget (node_budget)
-    # per-axis 1D gathers: a gathered (N, 3) pads its minor dim to 128
-    # lanes on TPU (42.7x HBM blowup at 16.7M-point chunks)
+    # per-axis 1D gathers of the node tables
     bmi = tuple(bmin_nodes[:, k][nidc] for k in range(3))
     bma = tuple(bmax_nodes[:, k][nidc] for k in range(3))
     pid, depth, payload = _project_101010(
         xyz4, xyz8, xyz12, lvl, bmi, bma, transform, base_index,
         width, height, vis,
     )
-    size = width * height
-    return sorted_scatter_u64_min(pid, depth, payload, size, fb_d, fb_p)
+    return merge_u64_min(fb_d, fb_p, pid, depth, payload)
 
 
 def _project_101010(
@@ -227,8 +142,7 @@ def _project_101010(
     width: int, height: int, mask_pt=None,
 ):
     """bmin_pt/bmax_pt: (N, 3) per-point planes OR 3-tuples of (N,)
-    per-axis vectors — the node-indexed path gathers per axis because
-    a gathered (N, 3) minor dim pads to 128 lanes on TPU (42.7x HBM)."""
+    per-axis vectors (the node-indexed paths gather per axis)."""
 
     def unpack(plane, shift):
         p = plane.astype(jnp.uint32)
@@ -355,7 +269,7 @@ class ComputeLoopLas2(ComputeLoopLas):
 
     def __init__(self, renderer, las):
         super().__init__(renderer, las, name="loop_las2")
-        self.description = "10-10-10 adaptive precision (las2 alias on TPU)"
+        self.description = "10-10-10 adaptive precision (las2 alias)"
 
 
 @partial(jax.jit, static_argnames=("width", "height"), donate_argnums=(8, 9, 10, 11))
@@ -366,57 +280,12 @@ def hqs_chunk_101010(
 ):
     """HQS accumulate pass over packed 10-10-10 points
     (modules/compute_loop_las_hqs/color.cs:370-403 semantics)."""
-
-    def unpack(plane, shift):
-        p = plane.astype(jnp.uint32)
-        return (
-            ((p >> 0) & MASK) << shift,
-            ((p >> 10) & MASK) << shift,
-            ((p >> 20) & MASK) << shift,
-        )
-
-    x4, y4, z4 = unpack(xyz4, 20)
-    x8, y8, z8 = unpack(xyz8, 10)
-    x12, y12, z12 = unpack(xyz12, 0)
-    lvl = level_pt
-    if not isinstance(bmin_pt, tuple):
-        bmin_pt = (bmin_pt[:, 0], bmin_pt[:, 1], bmin_pt[:, 2])
-        bmax_pt = (bmax_pt[:, 0], bmax_pt[:, 1], bmax_pt[:, 2])
-    box = tuple(a - b for a, b in zip(bmax_pt, bmin_pt))
-    X = jnp.where(lvl == 0, x4 | x8 | x12, jnp.where(lvl == 1, x4 | x8, x4))
-    Y = jnp.where(lvl == 0, y4 | y8 | y12, jnp.where(lvl == 1, y4 | y8, y4))
-    Z = jnp.where(lvl == 0, z4 | z8 | z12, jnp.where(lvl == 1, z4 | z8, z4))
-    denom = jnp.where(lvl >= 2, STEPS_10BIT, STEPS_30BIT)
-    Xs = jnp.where(lvl >= 2, X >> 20, X).astype(jnp.float32)
-    Ys = jnp.where(lvl >= 2, Y >> 20, Y).astype(jnp.float32)
-    Zs = jnp.where(lvl >= 2, Z >> 20, Z).astype(jnp.float32)
-    px_ = Xs * (box[0] / denom) + bmin_pt[0]
-    py_ = Ys * (box[1] / denom) + bmin_pt[1]
-    pz_ = Zs * (box[2] / denom) + bmin_pt[2]
-
-    t = transform.astype(jnp.float32)
-    cx = t[0, 0] * px_ + t[0, 1] * py_ + t[0, 2] * pz_ + t[0, 3]
-    cy = t[1, 0] * px_ + t[1, 1] * py_ + t[1, 2] * pz_ + t[1, 3]
-    w = t[3, 0] * px_ + t[3, 1] * py_ + t[3, 2] * pz_ + t[3, 3]
-    ndc_x, ndc_y = cx / w, cy / w
-    ok = (w > 0) & (jnp.abs(ndc_x) <= 1) & (jnp.abs(ndc_y) <= 1)
-    if mask_pt is not None:
-        ok &= mask_pt
-    sx = ((ndc_x * 0.5 + 0.5) * width).astype(jnp.int32)
-    sy = ((ndc_y * 0.5 + 0.5) * height).astype(jnp.int32)
-    ok &= (sx >= 0) & (sx < width) & (sy >= 0) & (sy < height)
-    size = width * height
-    pid = jnp.where(ok, sx + sy * width, size)
-    old = jax.lax.bitcast_convert_type(
-        fb_depth[jnp.clip(pid, 0, size - 1)], jnp.float32
+    pid, depth, _idx = _project_101010(
+        xyz4, xyz8, xyz12, level_pt, bmin_pt, bmax_pt, transform, 0,
+        width, height, mask_pt,
     )
-    keep = ok & (w <= old * 1.01)
-    pid2 = jnp.where(keep, pid, size)
-    acc_r = acc_r.at[pid2].add(rgba & 0xFF, mode="drop")
-    acc_g = acc_g.at[pid2].add((rgba >> 8) & 0xFF, mode="drop")
-    acc_b = acc_b.at[pid2].add((rgba >> 16) & 0xFF, mode="drop")
-    acc_n = acc_n.at[pid2].add(jnp.uint32(1), mode="drop")
-    return acc_r, acc_g, acc_b, acc_n
+    return hqs_accumulate((acc_r, acc_g, acc_b, acc_n), pid, depth, rgba,
+                          fb_depth)
 
 
 class ComputeLoopLasHqs(ComputeLoopLas):
@@ -427,8 +296,6 @@ class ComputeLoopLasHqs(ComputeLoopLas):
         self.description = "10-10-10 adaptive precision, HQS average blend"
 
     def render(self, renderer):
-        from .huffman_hqs import resolve_hqs
-
         las = self.las
         las.process(renderer)
         W, H = renderer.width, renderer.height

@@ -6,8 +6,8 @@ the node's extent; the unpacker handles codes spanning word boundaries
 (render.cs:268-320).  Consumes the `.wg` format written by
 tools/potree_to_wg.py.
 
-On TPU the variable-bit unpack is a per-point two-word window read —
-a gather, so this path is a functional baseline (it was an experimental
+The variable-bit unpack is a per-point two-word window read — a
+gather, so this path is a functional baseline (it was an experimental
 format in the reference too); the production compressed path is
 `huffman_tpu`.
 """
@@ -23,7 +23,7 @@ import numpy as np
 from ...engine.method import Method
 from ...engine.resource import Resource, ResourceState
 from ...tools.potree_to_wg import read_wg
-from ..raster import EMPTY, resolve, sorted_resolve_u64_min
+from ..raster import scatter_u64_min
 from .loop_las import resolve_indexed
 
 
@@ -127,10 +127,7 @@ def _render_wg(words, colors, bits, base_bit, bmin, bmax, transform,
     pid = jnp.where(ok, sx + sy * width, size)
     depth = jax.lax.bitcast_convert_type(w, jnp.uint32)
     payload = jnp.arange(n, dtype=jnp.uint32)
-    fb_d, fb_p = sorted_resolve_u64_min(
-        pid, depth, payload, size, True, jax.default_backend() == "tpu"
-    )
-    return fb_d, fb_p
+    return scatter_u64_min(pid, depth, payload, size)
 
 
 class ComputeLoopNodesCompressed(Method):

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ...engine.method import Method
-from ..raster import EMPTY, resolve, sorted_resolve_u64_min
+from ..raster import resolve, scatter_u64_min
 
 N_U, N_V = 2048, 1024  # 2M generated points per frame
 
@@ -65,10 +65,7 @@ def render_parametric(transform, surface: str, width: int, height: int):
     size = width * height
     pid = jnp.where(ok, sx + sy * width, size)
     depth = jax.lax.bitcast_convert_type(w, jnp.uint32)
-    fb_d, fb_p = sorted_resolve_u64_min(
-        pid, depth, rgba, size, True, jax.default_backend() == "tpu"
-    )
-    return fb_d, fb_p
+    return scatter_u64_min(pid, depth, rgba, size)
 
 
 class Parametric(Method):

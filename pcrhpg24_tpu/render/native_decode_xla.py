@@ -1,9 +1,9 @@
-"""Portable XLA decoder for the tbatch native format.
+"""XLA decoders for the native `.tpc` formats.
 
-Protocol-identical to the Pallas kernel (pallas_decode.py) and the NumPy
-mirror (codec/native.py): used as the CPU/testing fallback and as a
-cross-check of the kernel.  Gathers go through `jnp.take`, so this path
-is correct everywhere but not fast on TPU.
+`decode_native_xla` (tbatch, v1) and `decode_fixed_xla` (fbatch, v2) are
+protocol-identical to the NumPy mirrors (codec/native.py,
+codec/fixed.py) and run on every platform.  `decode_fixed` picks the
+fbatch decoder the frame uses.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ _I = jnp.int32
 
 def decode_native_xla(lj, streams, ptrs, dD, lut, starts,
                       points: int = POINTS_PER_THREAD):
-    """Same signature/layout as pallas_decode.decode_native_batches."""
+    """lj (B,1,32), streams (B,8,maxw) u32, ptrs (B,384,8), dD/lut
+    (B,1,128), starts (B,3,8,128) -> (B, points, 3, 8, 128) i32."""
     B, _, maxw = streams.shape
     flat = streams.reshape(-1)  # (B*G*maxw,)
     lane = jnp.arange(128)
@@ -95,10 +96,11 @@ def decode_native_xla(lj, streams, ptrs, dD, lut, starts,
 
 def decode_fixed_xla(widths, streams, ptrs, starts,
                      points: int = POINTS_PER_THREAD):
-    """Portable XLA decoder for the fbatch (fixed-width, v2) format.
+    """XLA decoder for the fbatch (fixed-width, v2) format.
 
-    Same signature/layout as pallas_decode_fixed.decode_fixed_batches;
-    protocol-identical to codec/fixed.py's mirror.  CPU/test fallback.
+    widths (B,3,8,128) i32, streams (B,maxT,8,128) u32, ptrs (B,1,64)
+    i32, starts (B,3,8,128) i32 -> (B, points, 3, 8, 128) i32 absolute
+    coords; protocol-identical to codec/fixed.py's mirror.
     """
     B = widths.shape[0]
     wx = widths[:, 0].astype(_I)  # (B, 8, 128)
@@ -164,3 +166,25 @@ def decode_fixed_xla(widths, streams, ptrs, starts,
         starts, (0, 1, 2, 3)
     )[None].astype(_I)
     return jnp.transpose(coords, (1, 0, 2, 3, 4))  # (B, points, 3, 8, 128)
+
+
+def decode_fixed(widths, streams, ptrs, starts,
+                 points: int = POINTS_PER_THREAD, impl: str = "kernel"):
+    """fbatch decode as the frame runs it.
+
+    impl="kernel": the Pallas-Triton kernel (decode_fixed_triton) where
+    the program is lowered for CUDA, decode_fixed_xla on any other
+    platform (the kernel compiles only for NVIDIA GPUs).  impl="xla":
+    decode_fixed_xla everywhere — the reference the kernel is checked
+    against.  Both give the same bits.
+    """
+    from .decode_fixed_triton import decode_fixed_triton
+
+    args = (widths, streams, ptrs, starts)
+    xla = partial(decode_fixed_xla, points=points)
+    if impl == "xla":
+        return xla(*args)
+    if impl != "kernel":
+        raise ValueError(f"unknown fbatch decoder {impl!r}")
+    return jax.lax.platform_dependent(
+        *args, cuda=partial(decode_fixed_triton, points=points), default=xla)

@@ -3,8 +3,8 @@
 Role-equivalent of the reference's _drawBoundingBoxes helpers
 (reference: include/drawBoundingBoxes.h, drawBoxes.h): batch/node AABBs
 drawn as line wireframes over the resolved image.  Lines are rasterized
-as sampled points through the same scatter framebuffer (no GL lines on
-TPU), depth-tested against the existing depth buffer.
+as sampled points through the same scatter framebuffer (no GL lines
+here), depth-tested against the existing depth buffer.
 """
 
 from __future__ import annotations

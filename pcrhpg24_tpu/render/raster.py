@@ -2,16 +2,16 @@
 
 The reference rasterizes with a u64 atomicMin per pixel over keys
 `(f32_bits(clip.w) << 32) | payload` (reference: modules/
-huffman_mem_iter_cuda/render.cu:276-303).  TPUs have no atomics; we get
-the identical winner with two u32 scatter-min passes:
+huffman_mem_iter_cuda/render.cu:276-303).  Without 64-bit scatters we
+get the identical winner with two u32 scatter-min passes:
 
   1. scatter-min of depth bits per pixel,
   2. scatter-min of payload restricted to points whose depth equals the
      per-pixel minimum.
 
 u64 min picks (min depth, then min payload among min-depth points) —
-exactly what the two passes compute.  This is the XLA path (correct,
-moderate speed); the Pallas sort-merge path is the performance path.
+exactly what the two passes compute.  On the GPU each pass is an XLA
+scatter with a min combiner, which lowers to atomics.
 """
 
 from __future__ import annotations
@@ -25,13 +25,9 @@ EMPTY = jnp.uint32(0xFFFFFFFF)
 BACKGROUND = jnp.uint32(0x00443322)  # resolve.cu:166
 
 # Swizzled pixel-id space: the flagship resolve works in units of
-# 32x32-px screen tiles (1024 px = one merge-kernel window unit) instead
-# of linear y*W+x ids.  Linear ids make a resolve "tile" (1024
-# consecutive ids) half a scanline, so a Morton-compact point cluster
-# covering a WxH screen region touches ~H strip-tiles; square tiles cut
-# the merge kernel's window count ~3-8x (experiments/r3_windows.py) and
-# make per-stream spans compact enough for segmented sorts.
-TILE_PX = 32  # tile edge; TILE_PX**2 == pallas_merge.TILE
+# 32x32-px screen tiles instead of linear y*W+x ids, so a Morton-compact
+# point cluster lands in few, square runs of framebuffer memory.
+TILE_PX = 32  # tile edge
 
 
 def swizzle_dims(width: int, height: int):
@@ -70,9 +66,8 @@ def swizzle_plane(fb, width: int, height: int, fill):
 def project(positions, transform):
     """positions (N,3) f32, transform (4,4) f32 -> clip (N,4).
 
-    Written as explicit VPU multiply-adds: a matmul here would route
-    through the MXU at bf16 default precision on TPU and destroy the
-    depth bits.
+    Written as explicit multiply-adds: a matmul here may run at reduced
+    precision (TF32 on the GPU) and destroy the depth bits.
     """
     t = transform.astype(jnp.float32)
     x, y, z = positions[:, 0], positions[:, 1], positions[:, 2]
@@ -81,21 +76,15 @@ def project(positions, transform):
 
 
 def scatter_u64_min(pid, depth, payload, size: int):
-    """Exact u64 (depth<<32|payload) scatter-min via two u32 passes.
+    """Exact u64 (depth<<32|payload) scatter-min into a cleared framebuffer.
 
     pid: (N,) i32 pixel ids with out-of-range == dropped; depth/payload
-    u32.  Returns (fb_depth, fb_payload) each (size,) u32 initialized to
-    EMPTY (the reference clears the fb to 0xFF bytes,
+    u32.  Returns (fb_depth, fb_payload) each (size,) u32, EMPTY where no
+    point landed (the reference clears the fb to 0xFF bytes,
     huffman_mem_iter_cuda.h:250).
     """
-    fb_depth = jnp.full((size,), EMPTY, jnp.uint32)
-    fb_depth = fb_depth.at[pid].min(depth, mode="drop")
-    ok = (pid >= 0) & (pid < size)
-    winner = ok & (depth == fb_depth[jnp.clip(pid, 0, size - 1)])
-    pid2 = jnp.where(winner, pid, size)
-    fb_payload = jnp.full((size,), EMPTY, jnp.uint32)
-    fb_payload = fb_payload.at[pid2].min(payload, mode="drop")
-    return fb_depth, fb_payload
+    empty = jnp.full((size,), EMPTY, jnp.uint32)
+    return merge_u64_min(empty, empty, pid, depth, payload)
 
 
 @partial(jax.jit, static_argnames=("width", "height"))
@@ -122,104 +111,43 @@ def rasterize(positions, payload, transform, width: int, height: int, mask=None)
     return scatter_u64_min(pid, depth, payload, width * height)
 
 
-def sorted_scatter_u64_min(pid, depth, payload, size: int, fb_d, fb_p):
-    """Exact u64 (depth<<32|payload) resolve via 3-key sort + head dedup.
+def merge_u64_min(fb_d, fb_p, pid, depth, payload):
+    """Min-merge points into a running framebuffer, exact u64 semantics.
 
-    Lexicographic sort puts each pixel's winner first in its run; one
-    plain unique-target scatter per plane then lands it.  ~2x faster on
-    TPU than two scatter-mins + a winner gather (experiments/NOTES.md);
-    semantics identical to scatter_u64_min (asserted in tests).
-    Out-of-range pids (masked points) sort to the end and drop.
+    Returns the planes of min((fb_d<<32|fb_p), (depth<<32|payload)) per
+    pixel.  A pixel whose depth improves drops its old payload; one whose
+    depth ties keeps it as a candidate.  u64-min is associative over any
+    partition of the points, so merging chunk by chunk equals one global
+    resolve.  pid: (N,) ids, out-of-range == dropped.
     """
-    spid, sdep, spay = jax.lax.sort(
-        [pid.astype(jnp.uint32), depth, payload], num_keys=3, is_stable=False
-    )
-    head = jnp.concatenate([jnp.ones(1, bool), spid[1:] != spid[:-1]]) & (
-        spid < size
-    )
-    tgt = jnp.where(head, spid, jnp.uint32(size)).astype(jnp.int32)
-    cd = jnp.full((size,), EMPTY, jnp.uint32).at[tgt].set(sdep, mode="drop")
-    cp = jnp.full((size,), EMPTY, jnp.uint32).at[tgt].set(spay, mode="drop")
-    better = (cd < fb_d) | ((cd == fb_d) & (cp < fb_p))
-    return jnp.where(better, cd, fb_d), jnp.where(better, cp, fb_p)
+    size = fb_d.shape[0]
+    new_d = fb_d.at[pid].min(depth, mode="drop")
+    ok = (pid >= 0) & (pid < size)
+    winner = ok & (depth == new_d[jnp.clip(pid, 0, size - 1)])
+    keep_p = jnp.where(new_d == fb_d, fb_p, EMPTY)
+    new_p = keep_p.at[jnp.where(winner, pid, size)].min(payload, mode="drop")
+    return new_d, new_p
 
 
-def sorted_resolve_u64_min_parts(parts, size: int, need_depth: bool = True,
-                                 use_pallas: bool = False,
-                                 presorted: bool = False):
-    """Whole-frame exact u64-min resolve from PER-CHUNK streams.
+def hqs_accumulate(acc, pid, depth, rgba, fb_depth):
+    """Add one chunk's depth-tolerance-gated colours to the HQS sums.
 
-    parts: list of (pid, depth, payload) triples.  On the Pallas path
-    each chunk is nk1-sorted independently (XLA sort cost grows
-    superlinearly — 1.3 ms at 4.2M vs 18.7 ms at 16.7M — and Morton
-    chunks are spatially compact, so per-chunk sorting is strictly
-    cheaper) and the merge kernel min-combines all streams per tile.
-    presorted: the caller already nk1-sorted each triple by pid (u32),
-    e.g. inside its per-chunk lax.scan; skip the sorts here.  The
-    fallback path is unaffected — it re-sorts globally regardless.
+    acc: (r, g, b, n) u32 planes; fb_depth: the frame's min-depth plane
+    (u32 bits of clip.w).  A point counts if w <= 1.01 * the pixel's
+    min w (reference: huffman_hqs/render.cu:311-313).  Sums are exact
+    and associative over any partition of the points.
     """
-    if use_pallas and all(p.shape[0] % 1024 == 0 for p, _d, _y in parts):
-        from .pallas_merge import dense_from_sorted_nk1_multi
-
-        sorted_parts = parts if presorted else [
-            tuple(jax.lax.sort(
-                [pid.astype(jnp.uint32), depth, payload],
-                num_keys=1, is_stable=False,
-            ))
-            for pid, depth, payload in parts
-        ]
-        return dense_from_sorted_nk1_multi(sorted_parts, size, need_depth)
-    cat = lambda xs: jnp.concatenate(xs) if len(xs) > 1 else xs[0]
-    return sorted_resolve_u64_min(
-        cat([p for p, _d, _y in parts]),
-        cat([d for _p, d, _y in parts]),
-        cat([y for _p, _d, y in parts]),
-        size, need_depth, use_pallas,
-    )
-
-
-def sorted_resolve_u64_min(pid, depth, payload, size: int,
-                           need_depth: bool = True,
-                           use_pallas: bool = False):
-    """Whole-frame exact u64-min resolve into a fresh framebuffer.
-
-    Same winner semantics as sorted_scatter_u64_min, but for the case
-    where ALL of a frame's points are resolved in one pass (no running
-    fb to merge into).  That makes the dense depth plane optional: the
-    depth bits still participate in the sort (so the payload winner is
-    exact), but when `need_depth` is False the ~size-proportional depth
-    scatter — measured at ~40% of the whole frame on TPU — is skipped
-    and fb_d is returned as None.  The reference has no such option
-    because its fb is inherently u64 depth|color (render.cu:276-303);
-    on TPU the planes are separate scatters, so color-only frames can
-    drop one.
-    """
-    if use_pallas and pid.shape[0] % 1024 == 0:
-        # scatter-free dense construction from a 1-key sort: sorting by
-        # pid alone costs 2.4 ms at 4.2M vs 8.4 ms for the 3-key sort
-        # (experiments/r2_sort_menu.py); the merge kernel restores exact
-        # u64 (depth<<32|payload) min order in-register per window
-        from .pallas_merge import dense_from_sorted_nk1
-
-        spid, sdep, spay = jax.lax.sort(
-            [pid.astype(jnp.uint32), depth, payload],
-            num_keys=1, is_stable=False,
-        )
-        return dense_from_sorted_nk1(spid, sdep, spay, size, need_depth)
-    spid, sdep, spay = jax.lax.sort(
-        [pid.astype(jnp.uint32), depth, payload], num_keys=3, is_stable=False
-    )
-    head = jnp.concatenate([jnp.ones(1, bool), spid[1:] != spid[:-1]]) & (
-        spid < size
-    )
-    tgt = jnp.where(head, spid, jnp.uint32(size)).astype(jnp.int32)
-    fb_p = jnp.full((size,), EMPTY, jnp.uint32).at[tgt].set(spay, mode="drop")
-    fb_d = (
-        jnp.full((size,), EMPTY, jnp.uint32).at[tgt].set(sdep, mode="drop")
-        if need_depth
-        else None
-    )
-    return fb_d, fb_p
+    size = fb_depth.shape[0]
+    w = jax.lax.bitcast_convert_type(depth, jnp.float32)
+    old = jax.lax.bitcast_convert_type(
+        fb_depth[jnp.clip(pid, 0, size - 1)], jnp.float32)
+    keep = (pid >= 0) & (pid < size) & (w <= old * 1.01)
+    pid2 = jnp.where(keep, pid, size)
+    acc_r, acc_g, acc_b, acc_n = acc
+    return (acc_r.at[pid2].add(rgba & 0xFF, mode="drop"),
+            acc_g.at[pid2].add((rgba >> 8) & 0xFF, mode="drop"),
+            acc_b.at[pid2].add((rgba >> 16) & 0xFF, mode="drop"),
+            acc_n.at[pid2].add(jnp.uint32(1), mode="drop"))
 
 
 @partial(jax.jit, static_argnames=("width", "height"))
@@ -227,6 +155,17 @@ def resolve(fb_payload, width: int, height: int):
     """Framebuffer -> (H, W) u32 RGBA image (resolve.cu:149-191)."""
     color = jnp.where(fb_payload != EMPTY, fb_payload, BACKGROUND)
     return color.reshape(height, width)
+
+
+@partial(jax.jit, static_argnames=("width", "height"))
+def resolve_hqs(acc_r, acc_g, acc_b, acc_n, width: int, height: int):
+    """HQS sums -> (H, W) image of the averaged colors (resolve.cu:29-41).
+
+    Any (height*width,) slice of linear planes works: the sharded frames
+    resolve their own rows."""
+    cnt = jnp.maximum(acc_n, 1)
+    color = (acc_r // cnt) | ((acc_g // cnt) << 8) | ((acc_b // cnt) << 16)
+    return jnp.where(acc_n > 0, color, BACKGROUND).reshape(height, width)
 
 
 @partial(jax.jit, static_argnames=("width", "height"))

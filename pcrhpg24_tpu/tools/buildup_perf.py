@@ -5,7 +5,7 @@ Port of the reference's `main_buildup_perf` executable
 ingest LAS points into a capacity-split octree?  Strategies (C++,
 native/buildup.cpp): pointwise adds, batched counting-sort partition,
 batchwise multithreaded (per-top-octant locks), and morton-ordered
-batched.  Off the TPU critical path — a host-side engineering bench,
+batched.  Off the render path — a host-side engineering bench,
 exactly like upstream (it never shipped in a render method).
 
     python -m pcrhpg24_tpu.tools.buildup_perf scene.las [--points N]

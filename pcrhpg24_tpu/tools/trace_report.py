@@ -1,87 +1,46 @@
 """Summarize a jax.profiler device trace: per-kernel time table.
 
-The TPU-native equivalent of the reference's GLTimerQueries ImPlot
-panel (src/GLTimerQueries.cpp:43-153, Renderer.cpp:371-459): reads the
-Chrome-trace JSON that jax.profiler writes alongside the .xplane.pb,
-keeps only device-lane complete events (TensorCore ops), and prints
-total/avg time per op name, descending — per-kernel attribution for a
-captured frame chain.
+The equivalent of the reference's GLTimerQueries ImPlot panel
+(src/GLTimerQueries.cpp:43-153, Renderer.cpp:371-459): reads the newest
+`.xplane.pb` under a trace directory, keeps the accelerator planes
+(utils/devtime.py), and prints total/avg time per kernel, descending —
+per-kernel attribution for a captured frame chain.
 
 Usage:
   python -m pcrhpg24_tpu.tools.trace_report /tmp/trace_dir [-n 30]
-          [--by-category]
 """
 
 from __future__ import annotations
 
 import argparse
-import collections
-import glob
-import gzip
-import json
-import os
 import re
 import sys
 
+from ..utils.devtime import busy_ms, device_events, latest_xplane
 
-def find_trace_json(root: str) -> str:
-    cands = sorted(
-        glob.glob(os.path.join(root, "**", "*.trace.json.gz"),
-                  recursive=True),
-        key=os.path.getmtime,
-    )
-    if not cands:
-        raise FileNotFoundError(f"no *.trace.json.gz under {root}")
-    return cands[-1]
-
-
-def load_events(path: str):
-    with gzip.open(path, "rt") as f:
-        data = json.load(f)
-    return data.get("traceEvents", [])
-
-
-_FUSION_RE = re.compile(r"\.\d+$")
+_SUFFIX_RE = re.compile(r"\.\d+$")
 
 
 def canonical(name: str) -> str:
     """fusion.123 -> fusion; keep custom-call/kernel names intact."""
-    return _FUSION_RE.sub("", name)
+    return _SUFFIX_RE.sub("", name)
 
 
-def device_pids(events) -> set:
-    """pids whose process_name metadata looks like a TPU device lane."""
-    pids = set()
-    for e in events:
-        if e.get("ph") == "M" and e.get("name") == "process_name":
-            n = e.get("args", {}).get("name", "")
-            if "TPU" in n or "/device:" in n or "TensorCore" in n:
-                pids.add(e["pid"])
-    return pids
-
-
-def report(root: str, top: int = 30, by_category: bool = False) -> str:
-    path = find_trace_json(root)
-    events = load_events(path)
-    pids = device_pids(events)
-    agg = collections.defaultdict(lambda: [0.0, 0])
+def report(root: str, top: int = 30) -> str:
+    events = device_events(root)
+    agg: dict[str, list] = {}
     total = 0.0
-    for e in events:
-        if e.get("ph") != "X" or e.get("pid") not in pids:
-            continue
-        # thread lanes named "Steps"/framework lanes duplicate op time;
-        # keep XLA op lanes only (they carry a duration + op name)
-        dur = e.get("dur", 0) / 1e3  # us -> ms
-        name = canonical(e.get("name", "?"))
-        if by_category:
-            a = e.get("args", {})
-            name = a.get("tf_op", a.get("hlo_category", name))
-        agg[name][0] += dur
-        agg[name][1] += 1
-        total += dur
+    for _plane, _line, name, _s, d in events:
+        ms = d / 1e6
+        row = agg.setdefault(canonical(name), [0.0, 0])
+        row[0] += ms
+        row[1] += 1
+        total += ms
     rows = sorted(agg.items(), key=lambda kv: -kv[1][0])[:top]
-    out = [f"trace: {path}", f"device op time total: {total:.2f} ms",
-           f"{'ms':>10} {'%':>6} {'count':>7}  op"]
+    out = [f"trace: {latest_xplane(root)}",
+           f"device kernel time total: {total:.3f} ms, "
+           f"busy (union): {busy_ms(events):.3f} ms",
+           f"{'ms':>10} {'%':>6} {'count':>7}  kernel"]
     for name, (ms, cnt) in rows:
         out.append(f"{ms:10.3f} {100 * ms / max(total, 1e-9):6.1f} "
                    f"{cnt:7d}  {name[:110]}")
@@ -92,9 +51,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("trace_dir")
     ap.add_argument("-n", "--top", type=int, default=30)
-    ap.add_argument("--by-category", action="store_true")
     args = ap.parse_args(argv)
-    print(report(args.trace_dir, args.top, args.by_category))
+    print(report(args.trace_dir, args.top))
     return 0
 
 

@@ -64,7 +64,7 @@ def test_huffman_scene_gets_tpu_method(tmp_path, capsys):
 
 def test_viewer_serves_frames(tpc_scene):
     """The localhost viewer serves the page, /info, and rendered PNGs
-    with live camera/mode parameters (VERDICT 'interactive viewing')."""
+    with live camera/mode parameters (interactive viewing)."""
     import json
     import threading
     import urllib.request

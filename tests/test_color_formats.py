@@ -118,8 +118,7 @@ def test_tpc_color_fmt_end_to_end(las_scene, fmt):
     fpd, scale, offset_rel, tb = _flagship_frame_args(res, W, H)
     _d, fb_p, img = render_frame_native(
         res.dev, fpd, scale, offset_rel, width=W, height=H, mode="color",
-        nchunks=1, use_pallas=False, cull=True, points=64,
-        need_depth=False, fmt="fixed", tb=tb, color_fmt=fmt,
+        nchunks=1, cull=True, points=64, fmt="fixed", tb=tb, color_fmt=fmt,
     )
     img = np.asarray(img)
     assert (img != BG).mean() > 0.02
@@ -152,8 +151,8 @@ def test_bc7_bc1_similar_images(las_scene):
         fpd, scale, offset_rel, tb = _flagship_frame_args(res, W, H)
         _dd, _p, img = render_frame_native(
             res.dev, fpd, scale, offset_rel, width=W, height=H,
-            mode="color", nchunks=1, use_pallas=False, cull=True,
-            points=64, need_depth=False, fmt="fixed", tb=tb,
+            mode="color", nchunks=1, cull=True,
+            points=64, fmt="fixed", tb=tb,
             color_fmt=fmt,
         )
         imgs[fmt] = np.asarray(img)

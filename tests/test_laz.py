@@ -102,7 +102,7 @@ def test_laz_partial_reads(tmp_path):
 
 def test_preprocess_from_laz(tmp_path):
     """End-to-end: .laz -> preprocess -> .tpc renders through the app
-    pipeline (VERDICT item 7: compressed-LAS ingestion)."""
+    pipeline (compressed-LAS ingestion)."""
     from pcrhpg24_tpu.preprocess import preprocess_las_tpc
     from pcrhpg24_tpu.formats.native_file import read_tpc_header
 

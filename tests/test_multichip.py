@@ -87,6 +87,17 @@ def test_flagship_sharded_matches_single(tpc_scene, kind):
     """dp-sharded fbatch flagship frame (and HQS) == single-device,
     bit-exact: u64-min winners / sums are associative over any batch
     partition, and BC1 payloads are shard-invariant."""
+    _sharded_vs_single(tpc_scene, kind, 4, 2)
+
+
+@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+@pytest.mark.parametrize("kind", ["color", "hqs"])
+def test_flagship_sharded_2x2_matches_single(tpc_scene, kind):
+    """The same on a 2x2 mesh: two batches per dp shard."""
+    _sharded_vs_single(tpc_scene, kind, 2, 2)
+
+
+def _sharded_vs_single(tpc_scene, kind, dp, sp):
     from __graft_entry__ import _flagship_frame_args
     from pcrhpg24_tpu.parallel.mesh_native import (
         _DEV_SPEC_KEYS, make_flagship_hqs, make_flagship_render,
@@ -95,63 +106,28 @@ def test_flagship_sharded_matches_single(tpc_scene, kind):
     from pcrhpg24_tpu.render.methods.huffman_tpu_hqs import hqs_frame_native
 
     las = tpc_scene
-    dp, sp = 4, 2
     devices = np.asarray(jax.devices()[: dp * sp]).reshape(dp, sp)
     mesh = Mesh(devices, ("dp", "sp"))
     W, H = 256, 144
     fpd, scale, offset_rel, tb = _flagship_frame_args(las, W, H)
-    dev = {k: las.dev[k][:dp] for k in _DEV_SPEC_KEYS}  # 3 real + 1 pad
-    tbs = tb[:dp]
+    dev = {k: las.dev[k][:4] for k in _DEV_SPEC_KEYS}  # 3 real + 1 pad
+    tbs = tb[:4]
 
     if kind == "color":
-        img_sh = np.asarray(jax.jit(make_flagship_render(
-            mesh, W, H, use_pallas=False))(dev, fpd, scale, offset_rel, tbs))
+        img_sh = np.asarray(jax.jit(make_flagship_render(mesh, W, H))(
+            dev, fpd, scale, offset_rel, tbs))
         _d, _p, img_1 = render_frame_native(
             las.dev, fpd, scale, offset_rel, width=W, height=H,
-            mode="color", nchunks=1, use_pallas=False, cull=True,
-            points=64, need_depth=False, fmt="fixed", tb=tb,
+            mode="color", nchunks=1, cull=True, points=64,
+            fmt="fixed", tb=tb,
         )
     else:
-        img_sh = np.asarray(jax.jit(make_flagship_hqs(
-            mesh, W, H, use_pallas=False))(dev, fpd, scale, offset_rel, tbs))
+        img_sh = np.asarray(jax.jit(make_flagship_hqs(mesh, W, H))(
+            dev, fpd, scale, offset_rel, tbs))
         _fbd, _accn, img_1 = hqs_frame_native(
-            las.dev, fpd, scale, offset_rel, W, H, 1, False, True,
-            "fixed", tb, 64,
+            las.dev, fpd, scale, offset_rel, W, H, 1, True, "fixed", tb, 64,
         )
     img_1 = np.asarray(img_1)
     mismatch = np.argwhere(img_sh != img_1)
     assert mismatch.size == 0, f"{mismatch.shape[0]} mismatching pixels"
     assert (img_sh != 0x00443322).sum() >= 100
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-@pytest.mark.parametrize("kind", ["color", "hqs"])
-def test_flagship_sharded_pallas_matches_xla(tpc_scene, kind):
-    """The PRODUCTION TPU path under shard_map: Pallas kernels (decode +
-    fused project + nk3 sorts + matscatter merge; HQS sum kernel) in
-    interpret mode must produce the sharded XLA path's image bit-exactly
-    — the composition an 8-chip mesh would actually ship
-    (mesh_native.make_flagship_render(use_pallas=True))."""
-    from __graft_entry__ import _flagship_frame_args
-    from pcrhpg24_tpu.parallel.mesh_native import (
-        _DEV_SPEC_KEYS, make_flagship_hqs, make_flagship_render,
-    )
-
-    las = tpc_scene
-    dp, sp = 4, 2
-    devices = np.asarray(jax.devices()[: dp * sp]).reshape(dp, sp)
-    mesh = Mesh(devices, ("dp", "sp"))
-    W, H = 256, 144
-    fpd, scale, offset_rel, tb = _flagship_frame_args(las, W, H)
-    dev = {k: las.dev[k][:dp] for k in _DEV_SPEC_KEYS}  # 3 real + 1 pad
-    tbs = tb[:dp]
-
-    mk = make_flagship_render if kind == "color" else make_flagship_hqs
-    img_xla = np.asarray(jax.jit(mk(
-        mesh, W, H, use_pallas=False))(dev, fpd, scale, offset_rel, tbs))
-    img_pal = np.asarray(jax.jit(mk(
-        mesh, W, H, use_pallas=True, interpret=True))(
-        dev, fpd, scale, offset_rel, tbs))
-    mismatch = np.argwhere(img_pal != img_xla)
-    assert mismatch.size == 0, f"{mismatch.shape[0]} mismatching pixels"
-    assert (img_pal != 0x00443322).sum() >= 100

@@ -1,4 +1,4 @@
-"""TPU-native (tbatch) codec round trips."""
+"""Native (tbatch) codec round trips."""
 
 import numpy as np
 import pytest

@@ -18,6 +18,7 @@ from pcrhpg24_tpu.formats.native_file import (
 from pcrhpg24_tpu.preprocess import preprocess_las, preprocess_las_tpc
 from pcrhpg24_tpu.render.methods.huffman_mem_iter import HuffmanMemIter
 from pcrhpg24_tpu.render.methods.huffman_tpu import HuffmanTpu
+from pcrhpg24_tpu.render.raster import EMPTY
 from pcrhpg24_tpu.utils.synthetic import cloud_to_grid, terrain_cloud
 
 W, H = 256, 144
@@ -72,7 +73,6 @@ def _run_method(method_cls, data_cls, path):
 
     Runtime.resource = None
     r = Renderer(W, H)
-    r.capture_depth = True  # fb comparisons below read the depth plane
     r.apply_setting(
         Setting(yaw=0.7, pitch=-0.7, radius=800.0, target=(450, 450, 100))
     )
@@ -92,12 +92,12 @@ def test_native_method_matches_reference_method(paths):
     Debug.lod = 1.0
 
     img_ref, fb_ref = _run_method(HuffmanMemIter, HuffmanLasData, huf)
-    img_tpu, fb_tpu = _run_method(HuffmanTpu, NativeLasData, tpc)
+    img_native, fb_native = _run_method(HuffmanTpu, NativeLasData, tpc)
 
     from tests.fbcompare import assert_fb_close
 
-    assert_fb_close(fb_tpu[0], fb_tpu[1], fb_ref[0], fb_ref[1])
-    assert (img_tpu == img_ref).mean() > 0.995
+    assert_fb_close(fb_native[0], fb_native[1], fb_ref[0], fb_ref[1])
+    assert (img_native == img_ref).mean() > 0.995
 
 
 def test_native_hqs_matches_reference_hqs(paths):
@@ -108,8 +108,8 @@ def test_native_hqs_matches_reference_hqs(paths):
     _las, huf, tpc = paths
     Debug.lod = 1.0
     img_ref, _ = _run_method(HuffmanHQS, HuffmanLasData, huf)
-    img_tpu, _ = _run_method(HuffmanTpuHqs, NativeLasData, tpc)
-    agree = (img_ref == img_tpu).mean()
+    img_native, _ = _run_method(HuffmanTpuHqs, NativeLasData, tpc)
+    agree = (img_ref == img_native).mean()
     assert agree > 0.99, f"HQS native vs reference agreement {agree}"
 
 
@@ -146,7 +146,7 @@ def test_lod_bucketed_decode_matches_full(paths):
         jnp.asarray(data.scale, jnp.float32),
         jnp.asarray(data.offset - data.las_min, jnp.float32),
     )
-    kw = dict(width=W, height=H, mode="color", nchunks=1, use_pallas=False,
+    kw = dict(width=W, height=H, mode="color", nchunks=1,
               cull=True, fmt="fixed" if data.version == 2 else "tbatch")
     bucket = max(16, -(-max_lod // 16) * 16)
     _d1, p1, img1 = render_frame_native(data.dev, jnp.asarray(fp), *consts,
@@ -159,12 +159,8 @@ def test_lod_bucketed_decode_matches_full(paths):
 
 
 def test_capture_depth_gate(paths, tmp_path):
-    """Color frames skip the depth plane; capture_depth opts back in.
-
-    The image must be identical either way (need_depth only controls
-    whether fb_d materializes), and save_depth_exr must refuse to dump
-    a plane that was never captured instead of writing garbage.
-    """
+    """A color frame always keeps its depth plane: save_depth_exr dumps
+    it, and every lit pixel has a depth."""
     _las, _huf, tpc = paths
     Debug.lod = 1.0
     from pcrhpg24_tpu.engine.method import Runtime
@@ -179,17 +175,16 @@ def test_capture_depth_gate(paths, tmp_path):
     m.update(r)
     data.wait_loaded(r)
 
-    img_nodepth = np.asarray(r.loop(m.update, m.render, frames=1))
-    assert r.last_fb[0] is None
-    with pytest.raises(RuntimeError, match="capture_depth"):
-        r.save_depth_exr(str(tmp_path / "d.npy"))
-
-    r.capture_depth = True
-    img_depth = np.asarray(r.loop(m.update, m.render, frames=1))
-    assert r.last_fb[0] is not None
+    img = np.asarray(r.loop(m.update, m.render, frames=1))
+    fb_d, fb_p = (np.asarray(a) for a in r.last_fb)
+    empty = int(EMPTY)
+    lit = fb_p != empty
+    assert lit.sum() > 1000
+    assert (fb_d[lit] != empty).all() and (fb_d[~lit] == empty).all()
+    assert (img.reshape(-1)[lit] == fb_p[lit]).all()
     r.save_depth_exr(str(tmp_path / "d.npy"))
-    assert (np.load(str(tmp_path / "d.npy")) != 0).any()
-    np.testing.assert_array_equal(img_nodepth, img_depth)
+    d = np.load(str(tmp_path / "d.npy"))[::-1].reshape(-1)
+    np.testing.assert_array_equal(d[lit], fb_d[lit].view(np.float32))
     data.unload(r)
 
 

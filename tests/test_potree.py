@@ -19,6 +19,14 @@ from pcrhpg24_tpu.utils.synthetic import terrain_cloud
 
 W, H = 192, 108
 BG = 0x00443322
+SEG = 32768  # chunk granularity of the small-chunk frame variants
+
+
+def _hqs_accumulate_101010(d, tables, code_nodes, chunks, wvp, fb_d, acc,
+                           W, H):
+    from pcrhpg24_tpu.render.methods.loop_nodes import eager_hqs_sums
+
+    return eager_hqs_sums(d, tables, code_nodes, chunks, wvp, fb_d, W, H)
 
 
 @pytest.fixture(scope="module")
@@ -143,16 +151,11 @@ def test_synth_potree_and_budget(tmp_path, monkeypatch):
 
 
 def test_rows_resolve_matches_scatter(potree_dir):
-    """The flagship rows-resolve path loop_nodes takes on TPU
-    (project_rows_101010_nodes + dense_from_sorted_rows, interpret here)
-    must produce the exact planes of the scatter fallback."""
-    import jax
-
-    from pcrhpg24_tpu.render.methods.loop_las import (
-        SORT_SEG, project_rows_101010_nodes, raster_chunk_101010_nodes,
-    )
-    from pcrhpg24_tpu.render.pallas_merge import dense_from_sorted_rows
-    from pcrhpg24_tpu.render.raster import EMPTY, swizzle_dims, unswizzle_plane
+    """The single-dispatch Potree color frame (render_frame_nodes: plane
+    reconstruction + projection + scatter-min merge per live chunk) must
+    produce the exact planes of the eager per-chunk scatter reference."""
+    from pcrhpg24_tpu.render.methods.loop_las import raster_chunk_101010_nodes
+    from pcrhpg24_tpu.render.raster import EMPTY, unswizzle_plane
 
     Runtime.resource = None
     r = Renderer(W, H)
@@ -178,7 +181,7 @@ def test_rows_resolve_matches_scatter(potree_dir):
     codes = m._frame_codes(lvl, vis, len(p.nodes))
     d = p.dev
     n_pad = int(d["xyz4"].shape[0])
-    assert n_pad % SORT_SEG == 0
+    assert n_pad % SEG == 0
 
     # scatter reference
     fb_d = jnp.full((W * H,), EMPTY, jnp.uint32)
@@ -188,26 +191,11 @@ def test_rows_resolve_matches_scatter(potree_dir):
         tables["bmin_nodes"], tables["bmax_nodes"], codes, wvp,
         jnp.uint32(0), fb_d, fb_p, W, H)
 
-    # rows path (interpret-mode merge kernel)
-    wt_cols, _ht, size = swizzle_dims(W, H)
-    sp, sd, sy = project_rows_101010_nodes(
-        d["xyz4"], d["xyz8"], d["xyz12"], tables["nid_pt"],
-        tables["bmin_nodes"], tables["bmax_nodes"], codes, wvp,
-        jnp.uint32(0), W, H, rows=n_pad // SORT_SEG)
-    gd, gp = dense_from_sorted_rows(sp, sd, sy, size, need_depth=True,
-                                    interpret=True, tile_cols=wt_cols)
-    got_p = unswizzle_plane(gp, W, H)
-    got_d = unswizzle_plane(gd, W, H)
     assert (np.asarray(fb_p) != EMPTY).sum() > 500  # scene actually renders
-    np.testing.assert_array_equal(np.asarray(got_p), np.asarray(fb_p))
-    np.testing.assert_array_equal(np.asarray(got_d), np.asarray(fb_d))
-
-    # single-dispatch frame (the production TPU steady-frame path):
-    # scan over live chunks + cond skip must give the same planes, with
-    # real chunk-skipping exercised (live list shorter than capacity)
-    from pcrhpg24_tpu.render.methods.loop_nodes import (
-        render_frame_nodes_tpu,
-    )
+    # single-dispatch frame: the loop over live chunks must give the
+    # same planes, with real chunk-skipping exercised (live list shorter
+    # than capacity)
+    from pcrhpg24_tpu.render.methods.loop_nodes import render_frame_nodes
 
     # small chunks force a multi-step scan with real chunk skipping;
     # rebuild the per-chunk XOR bases for this chunk size
@@ -215,13 +203,13 @@ def test_rows_resolve_matches_scatter(potree_dir):
 
     m._pt_cache = None
     old_chunk = ln.CHUNK_PTS
-    ln.CHUNK_PTS = SORT_SEG
+    ln.CHUNK_PTS = SEG
     try:
         tables = m._per_point_tables(p.num_points_loaded)
     finally:
         ln.CHUNK_PTS = old_chunk
     chunk_pts, ncap = tables["chunk_pts"], tables["ncap"]
-    assert chunk_pts == SORT_SEG and ncap >= 2
+    assert chunk_pts == SEG and ncap >= 2
     starts_, counts_ = tables["starts"], p.node_count[:nn]
     live_mask = np.zeros(ncap, bool)
     for i in np.flatnonzero(vis):
@@ -232,13 +220,13 @@ def test_rows_resolve_matches_scatter(potree_dir):
     live_idx = np.zeros(ncap, np.int32)
     live_idx[: len(live)] = live
     code_delta, base_code = m._frame_code_deltas(np.asarray(codes), tables)
-    sfd, sfp = render_frame_nodes_tpu(
+    assert len(live) < ncap  # some chunks are skipped
+    sfd, sfp = render_frame_nodes(
         d["xyz4"], d["xyz8"], d["xyz12"], tables["starts_d"],
         code_delta, tables["bmin_delta"], tables["bmax_delta"],
         base_code, tables["base_bmin"], tables["base_bmax"], wvp,
-        jnp.asarray(live_idx), jnp.int32(len(live)), W, H, ncap,
-        chunk_pts, interpret=True)
-    m._pt_cache = None  # drop the SORT_SEG-sized cache
+        jnp.asarray(live_idx), jnp.int32(len(live)), W, H, chunk_pts)
+    m._pt_cache = None  # drop the SEG-sized cache
     np.testing.assert_array_equal(
         np.asarray(unswizzle_plane(sfp, W, H)), np.asarray(fb_p))
     np.testing.assert_array_equal(
@@ -246,14 +234,11 @@ def test_rows_resolve_matches_scatter(potree_dir):
 
 
 def test_hqs_single_dispatch_matches_eager(potree_dir):
-    """The TPU HQS accumulate (single dispatch, gather-free planes,
-    matscatter sum kernel in interpret mode) must produce the eager
-    scatter-add path's (r,g,b,n) planes exactly."""
-    import jax
-
+    """The single-dispatch HQS accumulate (gather-free planes,
+    scatter-add sums) must produce the eager scatter-add reference's
+    (r,g,b,n) planes exactly."""
     from pcrhpg24_tpu.render.methods.loop_nodes import (
-        ComputeLoopNodes, _hqs_accumulate_101010,
-        render_frame_nodes_hqs_tpu,
+        ComputeLoopNodes, render_frame_nodes_hqs,
     )
     from pcrhpg24_tpu.render.raster import (
         EMPTY, swizzle_plane, unswizzle_plane,
@@ -303,13 +288,12 @@ def test_hqs_single_dispatch_matches_eager(potree_dir):
     live_idx = np.zeros(ncap, np.int32)
     live_idx[: len(chunks)] = chunks
     code_delta, base_code = m._frame_code_deltas(np.asarray(codes), tables)
-    accs = render_frame_nodes_hqs_tpu(
+    accs = render_frame_nodes_hqs(
         d["xyz4"], d["xyz8"], d["xyz12"], d["rgba"], tables["starts_d"],
         code_delta, tables["bmin_delta"], tables["bmax_delta"],
         base_code, tables["base_bmin"], tables["base_bmax"],
         swizzle_plane(fb_d, W, H, EMPTY), wvp,
-        jnp.asarray(live_idx), jnp.int32(len(chunks)),
-        W, H, ncap, chunk_pts, interpret=True)
+        jnp.asarray(live_idx), jnp.int32(len(chunks)), W, H, chunk_pts)
     got = [unswizzle_plane(a, W, H) for a in accs]
     assert int(np.asarray(want[3]).sum()) > 500  # scene contributes
     for k in range(4):
@@ -322,13 +306,10 @@ def test_hqs_overlap_tail_chunks(potree_dir):
     the overlap prefix in the HQS sums (the color pass's u64-min is
     idempotent over the overlap; sums are not)."""
     from pcrhpg24_tpu.render.methods.loop_nodes import (
-        ComputeLoopNodes, _hqs_accumulate_101010,
-        render_frame_nodes_hqs_tpu,
+        ComputeLoopNodes, render_frame_nodes_hqs,
     )
     import pcrhpg24_tpu.render.methods.loop_nodes as ln
-    from pcrhpg24_tpu.render.methods.loop_las import (
-        SORT_SEG, raster_chunk_101010_nodes,
-    )
+    from pcrhpg24_tpu.render.methods.loop_las import raster_chunk_101010_nodes
     from pcrhpg24_tpu.render.raster import (
         EMPTY, swizzle_plane, unswizzle_plane,
     )
@@ -355,14 +336,14 @@ def test_hqs_overlap_tail_chunks(potree_dir):
     # shrink the device pad to 4 segments so a 3-segment chunk size makes
     # the LAST chunk clamp into real, visible points (the resource's own
     # 2^20 pad would put the whole overlap in dead padding)
-    n_pad = 4 * SORT_SEG
+    n_pad = 4 * SEG
     total = int(np.sum(p.node_count[:nn]))
     assert total < n_pad
     p.dev = {kk: v[:n_pad] for kk, v in p.dev.items()}
     d = p.dev
     m._pt_cache = None
     old_chunk = ln.CHUNK_PTS
-    ln.CHUNK_PTS = 3 * SORT_SEG
+    ln.CHUNK_PTS = 3 * SEG
     try:
         tables = m._per_point_tables(p.num_points_loaded)
     finally:
@@ -397,13 +378,12 @@ def test_hqs_overlap_tail_chunks(potree_dir):
     live_idx = np.zeros(ncap, np.int32)
     live_idx[: len(chunks)] = chunks
     code_delta, base_code = m._frame_code_deltas(np.asarray(codes), tables)
-    accs = render_frame_nodes_hqs_tpu(
+    accs = render_frame_nodes_hqs(
         d["xyz4"], d["xyz8"], d["xyz12"], d["rgba"], tables["starts_d"],
         code_delta, tables["bmin_delta"], tables["bmax_delta"],
         base_code, tables["base_bmin"], tables["base_bmax"],
         swizzle_plane(fb_d, W, H, EMPTY), wvp,
-        jnp.asarray(live_idx), jnp.int32(len(chunks)),
-        W, H, ncap, chunk_pts, interpret=True)
+        jnp.asarray(live_idx), jnp.int32(len(chunks)), W, H, chunk_pts)
     got = [unswizzle_plane(a, W, H) for a in accs]
     m._pt_cache = None
     assert int(np.asarray(want[3]).sum()) > 500
@@ -413,16 +393,14 @@ def test_hqs_overlap_tail_chunks(potree_dir):
 
 
 def test_node_budget_parity_and_thinning(potree_dir):
-    """Per-node point budget (node_budget): the TPU single-dispatch
-    frame must bit-match the eager scatter path under the SAME budget,
-    and the budget must actually thin the candidate set."""
+    """Per-node point budget (node_budget): the single-dispatch frame
+    must bit-match the eager scatter path under the SAME budget, and
+    the budget must actually thin the candidate set."""
     from pcrhpg24_tpu.render.methods.loop_nodes import (
-        ComputeLoopNodes, node_budget, render_frame_nodes_tpu,
+        ComputeLoopNodes, node_budget, render_frame_nodes,
     )
-    from pcrhpg24_tpu.render.methods.loop_las import (
-        SORT_SEG, raster_chunk_101010_nodes,
-    )
-    from pcrhpg24_tpu.render.raster import EMPTY, swizzle_dims, unswizzle_plane
+    from pcrhpg24_tpu.render.methods.loop_las import raster_chunk_101010_nodes
+    from pcrhpg24_tpu.render.raster import EMPTY, unswizzle_plane
     from pcrhpg24_tpu.render.camera import batches_in_frustum, frustum_planes
     from pcrhpg24_tpu.render.methods.loop_nodes import node_levels
 
@@ -475,18 +453,17 @@ def test_node_budget_parity_and_thinning(potree_dir):
     filled0 = int((np.asarray(fb_p0) != EMPTY).sum())
     assert filled > 500 and filled <= filled0
 
-    # TPU single-dispatch path with the budget: bit-exact planes
+    # single-dispatch frame with the budget: bit-exact planes
     chunk_pts, ncap = tables["chunk_pts"], tables["ncap"]
     live = m._live_chunks(tables["starts"], counts, vis, n_pad)
     live_idx = np.zeros(ncap, np.int32)
     live_idx[: len(live)] = live
     code_delta, base_code = m._frame_code_deltas(np.asarray(codes), tables)
-    sfd, sfp = render_frame_nodes_tpu(
+    sfd, sfp = render_frame_nodes(
         d["xyz4"], d["xyz8"], d["xyz12"], tables["starts_d"],
         code_delta, tables["bmin_delta"], tables["bmax_delta"],
         base_code, tables["base_bmin"], tables["base_bmax"], wvp,
-        jnp.asarray(live_idx), jnp.int32(len(live)), W, H, ncap,
-        chunk_pts, interpret=True,
+        jnp.asarray(live_idx), jnp.int32(len(live)), W, H, chunk_pts,
         sval_delta=tables["sval_delta"], base_sval=tables["base_sval"])
     np.testing.assert_array_equal(
         np.asarray(unswizzle_plane(sfp, W, H)), np.asarray(fb_p))
@@ -496,7 +473,7 @@ def test_node_budget_parity_and_thinning(potree_dir):
 
 def test_compact_frame_matches_direct(potree_dir):
     """The O(visible) compact frame (segment row-gather + event-plane
-    reconstruction, interpret-mode merge) must bit-match the direct
+    reconstruction + scatter-min merge) must bit-match the direct
     budgeted eager-scatter frame — including with a multi-chunk
     compact buffer and a clamped last chunk."""
     import pcrhpg24_tpu.render.methods.loop_nodes as ln
@@ -554,7 +531,7 @@ def test_compact_frame_matches_direct(potree_dir):
         d["xyz4"], d["xyz8"], d["xyz12"], ct["seg_src"], ct["ev_pos"],
         ct["ev_code"], ct["ev_end"], ct["ev_off"], ct["ev_bmin"],
         ct["ev_bmax"], ct["base_ev"], wvp, ct["n_live"],
-        W, H, ct["ncap"], ct["chunk_pts"], COMPACT_SEG, interpret=True)
+        W, H, ct["chunk_pts"], COMPACT_SEG)
     got_p = np.asarray(unswizzle_plane(sfp, W, H))
     got_d = np.asarray(unswizzle_plane(sfd, W, H))
     assert (np.asarray(fb_p) != EMPTY).sum() > 500
@@ -564,10 +541,26 @@ def test_compact_frame_matches_direct(potree_dir):
 
 def test_compact_hqs_matches_eager(potree_dir):
     """Compact HQS sums == eager budgeted scatter-add sums."""
+    _compact_hqs_check(potree_dir, density=0.5)
+
+
+@pytest.mark.parametrize("density", [8.0, 1e6])
+def test_compact_hqs_high_density(potree_dir, density):
+    """Dense budgets: most nodes keep (nearly) all their points, so
+    adjacent nodes share the segment where one ends and the next
+    begins.  Each such segment must be copied once — the sums would
+    count its points twice otherwise — and the event count must stay
+    within its capacity."""
+    ct = _compact_hqs_check(potree_dir, density=density)
+    segs = np.asarray(ct["seg_src"])[: ct["n_segs"]]
+    assert len(np.unique(segs)) == len(segs)
+
+
+def _compact_hqs_check(potree_dir, density):
     import pcrhpg24_tpu.render.methods.loop_nodes as ln
     from pcrhpg24_tpu.render.methods.loop_nodes import (
-        COMPACT_SEG, ComputeLoopNodes, _hqs_accumulate_101010,
-        node_budget, node_levels, render_frame_nodes_compact_hqs,
+        COMPACT_SEG, ComputeLoopNodes, node_budget, node_levels,
+        render_frame_nodes_compact_hqs,
     )
     from pcrhpg24_tpu.render.methods.loop_las import raster_chunk_101010_nodes
     from pcrhpg24_tpu.render.raster import (
@@ -594,7 +587,7 @@ def test_compact_hqs_matches_eager(potree_dir):
     ) & (lvl < 4)
     take = node_budget(cam.view(), cam.proj(), p.bbox_min[:nn],
                        p.bbox_max[:nn], p.node_count[:nn], W, H,
-                       density=0.5, min_take=64)
+                       density=density, min_take=64)
     tables = m._per_point_tables(p.num_points_loaded)
     codes = m._frame_codes(lvl, vis, len(p.nodes), take)
     d = p.dev
@@ -625,9 +618,36 @@ def test_compact_hqs_matches_eager(potree_dir):
         ct["ev_pos"], ct["ev_code"], ct["ev_end"], ct["ev_off"],
         ct["ev_bmin"], ct["ev_bmax"], ct["base_ev"],
         swizzle_plane(fb_d, W, H, EMPTY), wvp, ct["n_live"],
-        W, H, ct["ncap"], ct["chunk_pts"], COMPACT_SEG, interpret=True)
+        W, H, ct["chunk_pts"], COMPACT_SEG)
     got = [unswizzle_plane(a, W, H) for a in accs]
     assert int(np.asarray(want[3]).sum()) > 500
     for kk in range(4):
         np.testing.assert_array_equal(np.asarray(got[kk]),
                                       np.asarray(want[kk]))
+    return ct
+
+
+@pytest.mark.parametrize("budget", [0.0, 0.5])
+@pytest.mark.parametrize("hqs", [False, True])
+def test_method_frame_matches_eager_reference(potree_dir, hqs, budget):
+    """loop_nodes / loop_nodes_hqs through the Renderer (single-dispatch
+    or compact frame) == the eager per-chunk reference image."""
+    from pcrhpg24_tpu.render.methods.loop_nodes import eager_reference
+
+    Runtime.resource = None
+    r = Renderer(W, H)
+    r.apply_setting(Setting(yaw=0.4, pitch=-0.8, radius=500.0,
+                            target=(250, 250, 60)))
+    p = PotreeData.create(potree_dir)
+    m = (ComputeLoopNodesHqs if hqs else ComputeLoopNodes)(r, p)
+    m.update(r)
+    p.wait_loaded(r)
+    Debug.node_budget = budget
+    try:
+        img = np.asarray(r.loop(m.update, m.render, frames=1))
+        ref = np.asarray(eager_reference(m, r, hqs=hqs))
+    finally:
+        Debug.node_budget = 0.0
+    p.unload(r)
+    assert (ref != BG).mean() > 0.03
+    np.testing.assert_array_equal(img, ref)

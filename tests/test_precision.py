@@ -2,7 +2,7 @@
 
 render.cu:346-379 switches close-up batches to an f64 decode+project
 path; absolute f32 coordinates of km-scale clouds lose millimetres.
-The TPU mapping (camera.batch_translations + per-batch i32 anchors)
+The batch-relative path (camera.batch_translations + per-batch i32 anchors)
 must pixel-match a full-f64 CPU rasterizer on a close-up view of a
 large-extent cloud — a view where the old absolute-f32 path visibly
 breaks.
@@ -136,7 +136,7 @@ def test_absolute_f32_path_would_fail(big_extent_tpc):
         jnp.asarray(data.scale, jnp.float32),
         jnp.asarray(data.offset - data.las_min, jnp.float32),
     )
-    kw = dict(width=W, height=H, mode="color", nchunks=1, use_pallas=False,
+    kw = dict(width=W, height=H, mode="color", nchunks=1,
               cull=True, fmt="fixed")
     _d, _p, img_abs = render_frame_native(
         data.dev, jnp.asarray(fp), *consts, **kw)  # tb=None: absolute f32
